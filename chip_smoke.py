@@ -11,7 +11,9 @@ exits non-zero. Phases:
   2. K1 (csrc/lpc_cepstra.cu) against its plain PyTorch version on AR
      lags at the main-path shapes, a ragged row count, unity gain,
      lim = 1 and lim = 2 (rtol = atol = 1e-4), and on the real FDLP lags
-     of a near-periodic input (finite output); kernel and plain times;
+     of a near-periodic input (finite; rtol = atol = 5e-3 and each
+     coefficient's error within 0.15 of its mean magnitude); kernel and
+     plain times;
   3. featgen at the wsj_fdlp_e2e front-end (80 bands, order 150, 1.5 s)
      on 32 utterances of 6-10 s: backend 'auto' (K1) against 'scan'
      (plain), rtol 1e-3 / atol 2e-3 on valid frames;
@@ -21,7 +23,10 @@ exits non-zero. Phases:
      2-6 s with seeded random weights; K1's launches are counted over this
      run; the log-likelihoods are held against the same chain with the
      plain LPC backend (atol 1e-2) and the AM against itself on the CPU;
-     per-batch times and a torch.profiler breakdown of device time;
+     K1 against its plain version on the main path's own lags (rtol =
+     atol = 1e-3 and each coefficient's error within 1e-2 of its mean
+     magnitude); per-batch times and a torch.profiler breakdown of device
+     time;
   5. one JSON line describing every kernel of the port;
   6. last line: {"ok": true, "device": {...}}.
 """
@@ -38,6 +43,11 @@ import torch
 
 H100_F32_FLOPS = 67e12  # non-tensor-core float32, SXM, at 700 W
 H100_BYTES_PER_S = 3.35e12  # HBM3
+
+# K1 against its plain version on real FDLP lags: allclose(rtol=atol=TOL)
+# and, per cepstral coefficient n, max|err_n| <= REL * mean|c_n|
+MAIN_PATH_TOL, MAIN_PATH_REL = 1e-3, 1e-2
+NEAR_PERIODIC_TOL, NEAR_PERIODIC_REL = 5e-3, 0.15
 
 
 def log(msg):
@@ -112,11 +122,14 @@ def device_breakdown(tag, fn, top=8):
 
 
 def k1_work(P, order, lim):
-    """(flops, bytes) the K1 function needs: Levinson 2p(p-1) (dot + update
-    per step), normalisation p, gain 2p, cepstrum 3 per (n, m) term; each
-    input lag read once (order+2 per row), each output written once."""
-    flops = 2 * order * (order - 1) + order + 2 * order
-    flops += 3 * sum(n - 1 for n in range(2, lim))
+    """(flops, bytes) the K1 function needs, per row: normalisation p,
+    Levinson 2p(p-1) (a dot and an update per step), gain 2p; cepstrum c_n
+    for 2 <= n < lim as one FMA (2 flops) per term b[n-m] d_m with
+    d_m = m c_m kept, over the terms whose b[n-m] is nonzero (n-m <= p),
+    plus 3 per n (scale by 1/n and add b[n], form d_n). Bytes: each input
+    lag read once (order+2 per row), each output written once."""
+    flops = order + 2 * order * (order - 1) + 2 * order
+    flops += sum(2 * min(n - 1, order) + 3 for n in range(2, lim))
     return P * flops, P * (order + 2 + lim) * 4
 
 
@@ -124,6 +137,26 @@ def k1_bound_ms(P, order, lim):
     flops, nbytes = k1_work(P, order, lim)
     t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def cep_agreement(tag, got, ref):
+    """Kernel-vs-plain agreement on (P, lim) cepstra, printed per
+    coefficient n as the typical |c_n| (mean over rows) beside the largest
+    |err_n| over rows. Returns (max |err|, the least t for which
+    allclose(rtol=t, atol=t) holds, the worst max|err_n| / mean|c_n|)."""
+    err = (got - ref).abs()
+    typ = ref.abs().mean(0)
+    per_n = err.amax(0)
+    rel = per_n / typ.clamp_min(1e-30)
+    t_need = (err / (1 + ref.abs())).max().item()
+    lim = ref.shape[1]
+    shown = sorted({0, 1, 2, 5, 10, 20, lim // 2, lim - 1} & set(range(lim)))
+    log(f"[k1] {tag}: n: mean|c_n| / max|err_n|  " + "; ".join(
+        f"{n}: {typ[n].item():.3e} / {per_n[n].item():.3e}" for n in shown))
+    log(f"[k1] {tag}: max|err| {err.max().item():.3e}; allclose needs "
+        f"rtol=atol >= {t_need:.3e}; worst max|err_n|/mean|c_n| "
+        f"{rel.max().item():.3e} at n={int(rel.argmax())}")
+    return err.max().item(), t_need, rel.max().item()
 
 
 def ar_lags(P, order, gen, device):
@@ -198,6 +231,7 @@ def main():
         sys.exit(1)
 
     from speech_recognition_tools_tpu_torch import kernels
+    from speech_recognition_tools_tpu_torch.device import configure_cuda
     from speech_recognition_tools_tpu_torch.dsp.fdlp import (
         FdlpConfig,
         fdlp_lags,
@@ -221,8 +255,7 @@ def main():
     )
 
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    configure_cuda()  # TF32 off: the port is held to full-f32 contractions
     rng = np.random.RandomState(args.seed)
     gen = torch.Generator().manual_seed(args.seed)
 
@@ -237,7 +270,7 @@ def main():
     t0 = time.perf_counter()
     kernels.build()
     log(f"[build] kernels built in {time.perf_counter() - t0:.2f} s")
-    log(kernels.build_log("lpc_cepstra").strip())
+    log(kernels.build_log().strip())
 
     # ---- 2. K1 against its plain version ----
     TOL = 1e-4
@@ -270,9 +303,10 @@ def main():
     ref = lpc_cepstra_reference(r, e2e.order, e2e.coeff_num)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all(), "K1 non-finite on near-periodic FDLP lags"
-    log(f"[k1] near-periodic FDLP lags P={r.shape[0]}: finite; "
-        f"max|kernel - plain|={(got - ref).abs().max().item():.3e} "
-        f"(ill-conditioned rows; no tolerance)")
+    _, np_t, np_rel = cep_agreement(f"near-periodic FDLP lags P={r.shape[0]}", got, ref)
+    # ~4x the readings recorded in PERF.md (1.3e-3 and 3.9e-2): these
+    # near-periodic order-150 rows are ill-conditioned in f32
+    assert np_t <= NEAR_PERIODIC_TOL and np_rel <= NEAR_PERIODIC_REL, (np_t, np_rel)
     log(f"[k1] AR lags: max|err| {k1_err:.3e} <= rtol=atol={TOL}")
 
     # ---- 3. featgen at the wsj_fdlp_e2e front-end ----
@@ -362,10 +396,10 @@ def main():
     ref = lpc_cepstra_reference(r, hyb.order, hyb.coeff_num)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
-    main_err = (got - ref).abs().max().item()
-    # real FDLP lags are less well conditioned than the AR lags of phase 2;
-    # what matters downstream is held above (features, log-likelihoods)
-    assert main_err < 1e-2, main_err
+    main_err, main_t, main_rel = cep_agreement(f"main-path lags P={P}", got, ref)
+    # 4-6x the readings recorded in PERF.md (1.7e-4 and 2.7e-3); the
+    # per-coefficient limit holds the small late cepstra too
+    assert main_t <= MAIN_PATH_TOL and main_rel <= MAIN_PATH_REL, (main_t, main_rel)
     k_ms = cuda_ms(lambda: lpc_cepstra(r, hyb.order, hyb.coeff_num), reps=20)
     p_ms = cuda_ms(lambda: lpc_cepstra_reference(r, hyb.order, hyb.coeff_num),
                    reps=2, repeats=3)

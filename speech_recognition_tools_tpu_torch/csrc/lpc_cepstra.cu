@@ -17,12 +17,15 @@
 // here both use FLT_MIN, so they compute one function. The floor only
 // matters on degenerate rows whose error falls below 1e-37.
 //
-// What bounds it on an H100: operations, not bytes. A row reads
-// p+2 floats and writes lim, but runs ~2p^2 + 1.5 lim^2 flops through two
-// strictly sequential recursions (p steps, then lim-2 steps), each step a
-// reduction whose result the next step needs. At the main-path shape
-// (23,040 rows, p=150, lim=100) that is ~1.4 GFLOP (~21 us at 67 TFLOP/s
-// f32) against ~23 MB (~7 us at 3.35 TB/s).
+// What bounds it on an H100: a row reads p+2 floats and writes lim, and
+// needs ~2p^2 + lim^2 flops (a dot and an update per Levinson step; one FMA
+// per cepstrum term, keeping m c_m) through two strictly sequential
+// recursions (p steps, then lim-2 steps), each step a reduction whose
+// result the next step needs. At the e2e shape (23,040 rows, p=150,
+// lim=100) that is ~1.27 GFLOP (~19 us at 67 TFLOP/s f32) against ~23 MB
+// (~7 us at 3.35 TB/s): operations bind. At the hybrid shape (10,240 rows,
+// p=50, lim=50) it is ~77 MFLOP (~1.15 us) against ~4.2 MB (~1.25 us):
+// bytes bind, narrowly.
 //
 // Design: one warp per row, so each step's dot product is a strided
 // per-lane partial sum and one __shfl_xor_sync butterfly, with no block-wide

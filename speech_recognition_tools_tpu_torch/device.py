@@ -1,4 +1,4 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection and CUDA numerics shared by the port's entry points."""
 
 import torch
 
@@ -7,9 +7,8 @@ def resolve_device(device="cuda") -> torch.device:
     """The torch.device an entry point runs on.
 
     "cuda" (the default of every entry point) needs a card and raises
-    without one: the port never carries on quietly on the CPU. On CUDA,
-    TF32 is switched off for matmuls and cuDNN, because the JAX package runs
-    every contraction at Precision.HIGHEST (full float32).
+    without one: the port never carries on quietly on the CPU. This only
+    looks the device up; it changes no global setting.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -18,8 +17,19 @@ def resolve_device(device="cuda") -> torch.device:
                 "device='cuda' but torch.cuda.is_available() is False; "
                 "pass device='cpu' to run on the CPU"
             )
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (use 'cuda' or 'cpu')")
     return dev
+
+
+def configure_cuda() -> None:
+    """Switch TF32 off, process-wide, for CUDA matmuls and cuDNN.
+
+    The JAX package runs every contraction at Precision.HIGHEST (full
+    float32), and the port is held to it. The entry points that run on a
+    card (`fdlp_lags` / `fdlp_spectrogram_batch`, which the featgen CLI
+    runs, and `RNNClassifier`) call this when their device is CUDA, and say
+    so; it is the one place the port changes these `torch.backends` flags.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -30,7 +30,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from speech_recognition_tools_tpu_torch.device import resolve_device
+from speech_recognition_tools_tpu_torch.device import configure_cuda, resolve_device
 from speech_recognition_tools_tpu_torch.dsp.filterbanks import parse_fbank_type
 from speech_recognition_tools_tpu_torch.ops.autocorr import (
     banded_autocorr,
@@ -160,12 +160,15 @@ def fdlp_lags(signals, num_samples, cfg: FdlpConfig = FdlpConfig(), *,
     stage of fdlp_spectrogram_batch solves, with the f32 ridge applied.
 
     Returns (lags (B * max_frames, nfilters, order + 2), num_frames (B,)).
+    On CUDA it switches TF32 off process-wide (device.configure_cuda).
     """
     if cfg.precision != "fast":
         raise NotImplementedError(
             f"FdlpConfig(precision={cfg.precision!r}) is not yet ported"
         )
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        configure_cuda()
     c = _host_constants(cfg)
     if not banded_supports_separable(c["fbank"], cfg.order + 2):
         raise ValueError("a filterbank band wraps the spectrum ends; "
@@ -211,7 +214,8 @@ def fdlp_spectrogram_batch(
       jitter: optional (B, max_frames) integer array in {0, 1} enabling the
         reference's +-1-frame OLA jitter; None pins it to 0.
       dtype: work dtype (float32; float64 for CPU parity checks).
-      device: "cuda" (default) or "cpu".
+      device: "cuda" (default) or "cpu". On CUDA this switches TF32 off
+        process-wide (device.configure_cuda).
 
     Returns:
       feats: (B, Tmax, nfilters) log FDLP spectrogram (rows past each

@@ -1,6 +1,6 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernel.
 
-Each kernel is one `csrc/<name>.cu` file with a plain C interface. It is
+The kernel is `csrc/lpc_cepstra.cu` with a plain C interface. It is
 compiled with `nvcc` for Hopper (`sm_90a`) into a shared library under
 `_build/` (git-ignored) at first use, and loaded with `ctypes`. The file
 name carries a hash of the source and the flags, so an edited source is
@@ -20,20 +20,8 @@ import subprocess
 import tempfile
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+SOURCE = os.path.join(_PKG_DIR, "csrc", "lpc_cepstra.cu")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-
-# kernel name -> (source file, C signatures {function: (argtypes, restype)})
-_VP, _I, _CP = ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p
-KERNELS = {
-    "lpc_cepstra": (
-        "lpc_cepstra.cu",
-        {
-            "lpc_cepstra_f32": ([_VP, _VP, _I, _I, _I, _I, _I, _VP], _I),
-            "lpc_cepstra_error_string": ([_I], _CP),
-        },
-    ),
-}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -41,7 +29,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_lib: ctypes.CDLL | None = None
 
 
 def _nvcc() -> str:
@@ -50,70 +38,58 @@ def _nvcc() -> str:
             return cand
     raise RuntimeError(
         "nvcc not found (looked on PATH and in /usr/local/cuda/bin); the "
-        "port's CUDA kernels are built from source at first use"
+        "port's CUDA kernel is built from source at first use"
     )
 
 
-def library_path(name: str) -> str:
-    src, _ = KERNELS[name]
+def library_path() -> str:
     h = hashlib.sha1()
-    with open(os.path.join(CSRC_DIR, src), "rb") as f:
+    with open(SOURCE, "rb") as f:
         h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+    return os.path.join(BUILD_DIR, f"liblpc_cepstra-{h.hexdigest()[:12]}.so")
 
 
-def build_log(name: str) -> str:
+def build_log() -> str:
     """Compiler output (`-Xptxas -v`: registers, shared memory, spills)."""
-    path = library_path(name) + ".log"
+    path = library_path() + ".log"
     if not os.path.exists(path):
         return ""
     with open(path) as f:
         return f.read()
 
 
-def build(names=None) -> dict[str, str]:
-    """Compile the named kernels (default: all) that are not built yet,
-    one `nvcc` process per source, all started together. Returns
-    {name: library path}; raises with the compiler's output on failure."""
-    names = list(KERNELS) if names is None else list(names)
+def build() -> str:
+    """Compile the kernel unless it is built; return the library's path.
+    Raises with the compiler's output on failure."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    jobs = {}
-    for name in names:
-        out = library_path(name)
-        if os.path.exists(out):
-            continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, KERNELS[name][0])]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
-            continue
-        with open(out + ".log", "w") as f:
-            f.write(log)
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return {name: library_path(name) for name in names}
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"kernel build failed: nvcc exit {proc.returncode}\n"
+                           f"{proc.stdout}")
+    with open(out + ".log", "w") as f:
+        f.write(proc.stdout)
+    os.replace(tmp, out)
+    return out
 
 
-def load(name: str) -> ctypes.CDLL:
+def load() -> ctypes.CDLL:
     """The kernel's shared library, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        path = build([name])[name]
-        lib = ctypes.CDLL(path)
-        for fn, (argtypes, restype) in KERNELS[name][1].items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = restype
-        _loaded[name] = lib
-    return lib
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        lib.lpc_cepstra_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                        *[ctypes.c_int] * 5, ctypes.c_void_p]
+        lib.lpc_cepstra_f32.restype = ctypes.c_int
+        lib.lpc_cepstra_error_string.argtypes = [ctypes.c_int]
+        lib.lpc_cepstra_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib

@@ -25,7 +25,7 @@ import math
 import torch
 from torch import nn
 
-from speech_recognition_tools_tpu_torch.device import resolve_device
+from speech_recognition_tools_tpu_torch.device import configure_cuda, resolve_device
 
 
 def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -103,7 +103,8 @@ class RNNClassifier(nn.Module):
     """GRU stack + per-frame linear output (reference nnetRNN :54).
 
     `device` defaults to "cuda" and raises without a card; pass "cpu" to
-    build the model on the CPU.
+    build the model on the CPU. On CUDA it switches TF32 off process-wide
+    (device.configure_cuda), so its matmuls run in full float32.
     """
 
     def __init__(self, input_size: int, num_layers: int, hidden_size: int,
@@ -111,6 +112,8 @@ class RNNClassifier(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
+        if dev.type == "cuda":
+            configure_cuda()
         self.gru = GRUStack(input_size, num_layers, hidden_size, dropout,
                             device=dev, dtype=dtype)
         self.regression = nn.Linear(hidden_size, out_size, device=dev, dtype=dtype)

@@ -5,10 +5,13 @@ speech_recognition_tools_tpu/ops/pallas_lpc.py::_lpc_cepstra_kernel
 (launched by lpc_cepstra_pallas). The CUDA kernel is
 csrc/lpc_cepstra.cu, built for sm_90a at first use (kernels.py).
 
-What bounds it on an H100: operations, not bytes. A row reads
-order+2 floats and writes lim, but runs about 2 order^2 + 1.5 lim^2 flops
-through two sequential recursions whose every step ends in a reduction the
-next step needs. The design gives each row one warp: each step is a strided
+What bounds it on an H100: a row reads order+2 floats and writes lim,
+and needs about 2 order^2 + lim^2 flops (a dot and an update per Levinson
+step, one FMA per cepstrum term) through two sequential recursions whose
+every step ends in a reduction the next step needs. Operations bind at
+the e2e shape (order 150, lim 100); bytes bind, narrowly, at the hybrid
+shape (order 50, lim 50). In practice the per-step reductions bound it,
+far above either. The design gives each row one warp: each step is a strided
 per-lane partial sum plus one shuffle butterfly, with the lags, the
 predictor (ping-pong copies) and the cepstra in shared memory and no block
 barrier. See the source for the numbers at the main-path shape.
@@ -61,7 +64,7 @@ def lpc_cepstra(r: torch.Tensor, order: int, lim: int,
     out = torch.empty((P, lim), dtype=torch.float32, device=r.device)
     if P == 0:
         return out
-    lib = kernels.load("lpc_cepstra")
+    lib = kernels.load()
     stream = torch.cuda.current_stream(r.device).cuda_stream
     rc = lib.lpc_cepstra_f32(
         r.data_ptr(), out.data_ptr(), P, r.stride(0), order, lim,

@@ -15,6 +15,7 @@ from speech_recognition_tools_tpu.dsp import FdlpConfig as JaxFdlpConfig
 from speech_recognition_tools_tpu.dsp import fdlp_spectrogram_batch as jax_fdlp
 from speech_recognition_tools_tpu.infer import posteriors as jpost
 from speech_recognition_tools_tpu.utils import cmvn as jcmvn
+from speech_recognition_tools_tpu_torch.device import configure_cuda, resolve_device
 from speech_recognition_tools_tpu_torch.dsp.fdlp import (
     FdlpConfig,
     fdlp_spectrogram_batch,
@@ -85,6 +86,19 @@ def test_gru_default_device_raises_without_a_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="cuda"):
         RNNClassifier(D, 1, 8, 4)
+
+
+def test_device_lookup_leaves_tf32_flags_alone(monkeypatch):
+    """resolve_device only looks the device up; configure_cuda is the one
+    place that switches TF32 off."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert resolve_device("cpu") == torch.device("cpu")
+    RNNClassifier(D, 1, 8, 4, device="cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    configure_cuda()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
 
 
 @pytest.mark.parametrize("norm_var", [True, False])
