@@ -7,13 +7,20 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
 csrc/ and drives the port only (no JAX). Every phase asserts; any failure
 exits non-zero. Phases:
 
-  1. the card's name and power limit (nvidia-smi) and the kernel build;
+  1. the card's name and power limit (nvidia-smi) and the kernel build,
+     with each K1 instantiation's registers and spills (none allowed in
+     those the configs' launch plans pick);
   2. K1 (csrc/lpc_cepstra.cu) against its plain PyTorch version on AR
-     lags at the main-path shapes, a ragged row count, unity gain,
-     lim = 1 and lim = 2 (rtol = atol = 1e-4), and on the real FDLP lags
-     of a near-periodic input (finite; rtol = atol = 5e-3 and each
-     coefficient's error within 0.15 of its mean magnitude); kernel and
-     plain times;
+     lags (rtol = atol = 1e-4) at the three config shapes, ragged and odd
+     row counts, unity gain, lim = 1, lim = 2, lim > order + 1, and orders
+     at and just past the configs' plans' chunk boundaries; every lane
+     count and block size at the three timed shapes (checked and timed),
+     then the plan's choice with the plain time, the bound and its share
+     (kernel ms: device time by CUDA-graph replay; call ms: eager calls
+     back to back, host overhead included);
+     and on the real FDLP lags of a near-periodic input (finite;
+     rtol = atol = 5e-3 and each coefficient's error within 0.15 of its
+     mean magnitude at lim 100, 0.2 at lim 450);
   3. featgen at the wsj_fdlp_e2e front-end (80 bands, order 150, 1.5 s)
      on 32 utterances of 6-10 s: backend 'auto' (K1) against 'scan'
      (plain), rtol 1e-3 / atol 2e-3 on valid frames;
@@ -48,6 +55,14 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 # and, per cepstral coefficient n, max|err_n| <= REL * mean|c_n|
 MAIN_PATH_TOL, MAIN_PATH_REL = 1e-3, 1e-2
 NEAR_PERIODIC_TOL, NEAR_PERIODIC_REL = 5e-3, 0.15
+NEAR_PERIODIC_REVERB_REL = 0.2  # the same lags at lim = 450 (same TOL)
+
+# (order, coeff_num) of the front-ends in recipes/configs: wsj/chime4/
+# conformer e2e, timit_hybrid, reverb
+CONFIG_SHAPES = [(150, 100), (50, 50), (150, 450)]
+# K1's timed shapes: featgen's and the e2e front-end's rows, the hybrid
+# main path's, and the reverb front-end's at featgen's row count
+TIMED_SHAPES = [(23040, 150, 100), (10240, 50, 50), (23040, 150, 450)]
 
 
 def log(msg):
@@ -70,6 +85,25 @@ def cuda_ms(fn, reps, repeats=5, warmup=2):
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1) / reps)
     return statistics.median(times)
+
+
+def graph_ms(fn, reps=20, repeats=5):
+    """Median device time in ms of one fn() call: `reps` calls captured in
+    one CUDA graph, replayed between CUDA events, so that the host's
+    per-call overhead (which exceeds a short kernel) stays out of it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(graph.replay, reps=1, repeats=repeats) / reps
+    del graph
+    return ms
 
 
 def wall_s(fn, repeats=3):
@@ -246,6 +280,7 @@ def main():
     )
     from speech_recognition_tools_tpu_torch.models.recurrent import RNNClassifier
     from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import (
+        launch_plan,
         lpc_cepstra,
         lpc_cepstra_reference,
     )
@@ -270,16 +305,32 @@ def main():
     t0 = time.perf_counter()
     kernels.build()
     log(f"[build] kernels built in {time.perf_counter() - t0:.2f} s")
-    log(kernels.build_log().strip())
 
     # ---- 2. K1 against its plain version ----
+    all_lanes, _ = kernels.instantiations()
+    used = {launch_plan(order, lim)[:2] for order, lim in CONFIG_SHAPES}
+    for d in kernels.register_report():
+        log(f"[build] K1 lanes={d['lanes']} chunk={d['chunk']}: {d['registers']} registers, "
+            f"stack {d['stack']} B, spill stores {d['spill_stores']} B, spill loads "
+            f"{d['spill_loads']} B{' (a config plan)' if (d['lanes'], d['chunk']) in used else ''}")
+        if (d["lanes"], d["chunk"]) in used:
+            assert d["spill_stores"] == d["spill_loads"] == d["stack"] == 0, d
     TOL = 1e-4
     k1_err = 0.0
     cases = [(23040, 150, 100, False), (10240, 50, 50, False),
              (1001, 30, 40, False), (4096, 30, 40, True),
-             (2048, 20, 1, False), (2048, 20, 2, False)]
+             (2048, 20, 1, False), (2048, 20, 2, False),
+             (23040, 150, 450, False), (999, 150, 100, False),
+             (2048, 20, 60, False), (513, 3, 10, False)]
+    # an order at each chunk boundary of the configs' plans, and one above
+    for order, lim in CONFIG_SHAPES[:2]:
+        lanes, chunk, _ = launch_plan(order, lim)
+        cases += [(999, lanes * chunk, 60, False), (999, lanes * chunk + 1, 60, False)]
+    lags = {}
     for P, order, lim, unity in cases:
-        r = ar_lags(P, order, gen, dev)
+        if (P, order) not in lags:
+            lags[(P, order)] = ar_lags(P, order, gen, dev)
+        r = lags[(P, order)]
         got = lpc_cepstra(r, order, lim, unity_gain=unity)
         ref = lpc_cepstra_reference(r, order, lim, unity_gain=unity)
         torch.cuda.synchronize()
@@ -287,13 +338,33 @@ def main():
         assert torch.isfinite(got).all(), (P, order, lim)
         assert torch.allclose(got, ref, rtol=TOL, atol=TOL), (P, order, lim, unity, err)
         k1_err = max(k1_err, err)
-        line = f"[k1] P={P} order={order} lim={lim} unity_gain={unity} max|err|={err:.3e}"
-        if (order, lim) in ((150, 100), (50, 50)):
-            ms = cuda_ms(lambda: lpc_cepstra(r, order, lim), reps=20)
-            plain = cuda_ms(lambda: lpc_cepstra_reference(r, order, lim), reps=2, repeats=3)
-            bound, by = k1_bound_ms(P, order, lim)
-            line += f" kernel_ms={ms:.4f} plain_ms={plain:.3f} bound_ms={bound:.4f} ({by})"
-        log(line)
+        log(f"[k1] P={P} order={order} lim={lim} unity_gain={unity} "
+            f"plan={launch_plan(order, lim)} max|err|={err:.3e}")
+    log(f"[k1] AR lags: max|err| {k1_err:.3e} <= rtol=atol={TOL}")
+    # every lane count and block size at the three timed shapes, each held
+    # to the plain version, then the plan's own choice timed beside it
+    for P, order, lim in TIMED_SHAPES:
+        r = lags[(P, order)]
+        ref = lpc_cepstra_reference(r, order, lim)
+        bound, by = k1_bound_ms(P, order, lim)
+        for lanes in all_lanes:
+            for threads in (64, 128, 256):
+                try:
+                    plan = launch_plan(order, lim, lanes=lanes, threads=threads)
+                except ValueError:
+                    continue
+                got = lpc_cepstra(r, order, lim, plan=plan)
+                torch.cuda.synchronize()
+                assert torch.allclose(got, ref, rtol=TOL, atol=TOL), (P, order, lim, plan)
+                ms = graph_ms(lambda: lpc_cepstra(r, order, lim, plan=plan))
+                log(f"[k1-sweep] P={P} order={order} lim={lim} plan={plan} "
+                    f"kernel_ms={ms:.4f} share_of_bound={bound / ms:.3f}")
+        ms = graph_ms(lambda: lpc_cepstra(r, order, lim))
+        call = cuda_ms(lambda: lpc_cepstra(r, order, lim), reps=20)
+        plain = cuda_ms(lambda: lpc_cepstra_reference(r, order, lim), reps=1, repeats=3)
+        log(f"[k1] P={P} order={order} lim={lim} plan={launch_plan(order, lim)} "
+            f"kernel_ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.3f} "
+            f"bound_ms={bound:.4f} ({by}) share_of_bound={bound / ms:.3f}")
     e2e = FdlpConfig(nfilters=80, order=150, fduration=1.5, coeff_num=100,
                      coeff_range="1,100")
     sig = near_periodic()
@@ -307,7 +378,16 @@ def main():
     # ~4x the readings recorded in PERF.md (1.3e-3 and 3.9e-2): these
     # near-periodic order-150 rows are ill-conditioned in f32
     assert np_t <= NEAR_PERIODIC_TOL and np_rel <= NEAR_PERIODIC_REL, (np_t, np_rel)
-    log(f"[k1] AR lags: max|err| {k1_err:.3e} <= rtol=atol={TOL}")
+    # the same lags at the reverb recipe's 450 cepstra (its 80 bands, order
+    # 150 and 1.5 s windows; mel in place of its cochlear filterbank)
+    got = lpc_cepstra(r, e2e.order, 450)
+    ref = lpc_cepstra_reference(r, e2e.order, 450)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all(), "K1 non-finite on near-periodic lags at lim 450"
+    _, np_t, np_rel = cep_agreement(f"near-periodic FDLP lags P={r.shape[0]} lim=450",
+                                    got, ref)
+    # ~4x the readings recorded in PERF.md (1.2e-3 and 4.9e-2)
+    assert np_t <= NEAR_PERIODIC_TOL and np_rel <= NEAR_PERIODIC_REVERB_REL, (np_t, np_rel)
 
     # ---- 3. featgen at the wsj_fdlp_e2e front-end ----
     x, lens = speechlike_batch(rng, 32, 6.0, 10.0)
@@ -400,13 +480,14 @@ def main():
     # 4-6x the readings recorded in PERF.md (1.7e-4 and 2.7e-3); the
     # per-coefficient limit holds the small late cepstra too
     assert main_t <= MAIN_PATH_TOL and main_rel <= MAIN_PATH_REL, (main_t, main_rel)
-    k_ms = cuda_ms(lambda: lpc_cepstra(r, hyb.order, hyb.coeff_num), reps=20)
+    k_ms = graph_ms(lambda: lpc_cepstra(r, hyb.order, hyb.coeff_num))
+    call_ms = cuda_ms(lambda: lpc_cepstra(r, hyb.order, hyb.coeff_num), reps=20)
     p_ms = cuda_ms(lambda: lpc_cepstra_reference(r, hyb.order, hyb.coeff_num),
                    reps=2, repeats=3)
     bound, by = k1_bound_ms(P, hyb.order, hyb.coeff_num)
     log(f"[k1] main-path lags P={P} order={hyb.order} lim={hyb.coeff_num}: "
-        f"max|kernel - plain|={main_err:.3e} kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} "
-        f"bound_ms={bound:.5f} ({by})")
+        f"max|kernel - plain|={main_err:.3e} kernel_ms={k_ms:.4f} call_ms={call_ms:.4f} "
+        f"plain_ms={p_ms:.3f} bound_ms={bound:.5f} ({by})")
 
     # ---- 5. every kernel of the port ----
     log(json.dumps({"kernels": [{

@@ -278,7 +278,8 @@ def test_gain_fallback_and_degenerate_rows_match_jax():
 
 
 @pytest.mark.parametrize(
-    "P,order,lim", [(64, 30, 40), (48, 50, 50), (16, 150, 100), (8, 20, 2)]
+    "P,order,lim", [(64, 30, 40), (48, 50, 50), (16, 150, 100), (8, 20, 2),
+                    (8, 150, 450)]
 )
 def test_k1_plain_matches_pallas_and_scans(P, order, lim):
     """lpc_cepstra_reference (what the CUDA kernel is held to on the card)
