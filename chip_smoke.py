@@ -34,8 +34,23 @@ exits non-zero. Phases:
      atol = 1e-3 and each coefficient's error within 1e-2 of its mean
      magnitude); per-batch times and a torch.profiler breakdown of device
      time;
-  5. one JSON line describing every kernel of the port;
-  6. last line: {"ok": true, "device": {...}}.
+  5. the e2e slice at wsj_fdlp_e2e on phase 3's batch: FDLP (K1) ->
+     global CMVN -> TransformerASR (vocab 52, adim 256, 4 heads, 12/6
+     layers, FFN 2048) -> beam 10 joint CTC/attention search (ctc_weight
+     0.3, max_len 100) with a 1 x 1000 GRU RNNLM at weight 1.0, seeded
+     random weights; K1's launches are counted over one recognize_batch
+     call, whose texts must equal those of the chain run part by part;
+     CTC log-probs from K1 features held against the plain backend's
+     (E2E_CTC_TOL), the encoder against the CPU (atol 1e-4, two
+     utterances), the search against the CPU from the same memory (best
+     scores within 1e-4 relative; token-identical hypotheses counted);
+     per-batch times and real-time factor at max_len 100 and, from one
+     more search, at the recog_e2e CLI's default max_len 200; ms per beam
+     step split into decoder, CTC prefix, LM, top-k and update, and
+     profiles of the encoder and of ten beam steps;
+  6. one JSON line describing every kernel of the port (`launches` is the
+     main path's count, `launches_by_path` each path's);
+  7. last line: {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -56,6 +71,20 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 MAIN_PATH_TOL, MAIN_PATH_REL = 1e-3, 1e-2
 NEAR_PERIODIC_TOL, NEAR_PERIODIC_REL = 5e-3, 0.15
 NEAR_PERIODIC_REVERB_REL = 0.2  # the same lags at lim = 450 (same TOL)
+
+# the e2e slice (recipes/configs/wsj_fdlp_e2e.json): its model (:17-24;
+# vocab 52 is the WSJ character set the defaults carry), RNNLM (:41-45,
+# embedded at adim), decode (:35-40); max_len is beam_search_jit's default
+# (the recog_e2e CLI's is E2E_CLI_MAX_LEN, timed once); and the limit on
+# max|CTC logp(K1 features) - CTC logp(plain-backend features)| over valid
+# frames: ~4x the first reading recorded in PERF.md (3.0e-4)
+E2E_AM = dict(vocab_size=52, adim=256, aheads=4, elayers=12, eunits=2048, dlayers=6,
+              dunits=2048)
+E2E_LM_HIDDEN = 1000
+E2E_BEAM = dict(beam_size=10, ctc_weight=0.3, penalty=0.0, lm_weight=1.0)
+E2E_MAX_LEN = 100
+E2E_CLI_MAX_LEN = 200
+E2E_CTC_TOL = 1.2e-3
 
 # (order, coeff_num) of the front-ends in recipes/configs: wsj/chime4/
 # conformer e2e, timit_hybrid, reverb
@@ -237,22 +266,227 @@ def valid_rows(x, n):
     return torch.cat([x[b, : int(n[b])] for b in range(len(n))])
 
 
+def _uniform(rng, *shape, fan):
+    b = 1.0 / np.sqrt(fan)
+    return rng.uniform(-b, b, shape).astype(np.float32)
+
+
+def random_gru_cell(rng, d, H):
+    """A flax GRUCell parameter tree (ir/iz/in with biases, hr/hz/hn, hn's bias)."""
+    cell = {f"i{g}": {"kernel": _uniform(rng, d, H, fan=d), "bias": _uniform(rng, H, fan=H)}
+            for g in "rzn"}
+    cell.update({f"h{g}": {"kernel": _uniform(rng, H, H, fan=H)} for g in "rzn"})
+    cell["hn"]["bias"] = _uniform(rng, H, fan=H)
+    return cell
+
+
 def random_gru_params(rng, D, layers, H, C):
     """A flax-layout RNNClassifier parameter tree of seeded numpy arrays,
     carried over with io/jax_params.py like real JAX weights."""
-    def u(*shape, fan):
-        b = 1.0 / np.sqrt(fan)
-        return rng.uniform(-b, b, shape).astype(np.float32)
-
-    stack = {}
-    for i in range(layers):
-        d = D if i == 0 else H
-        cell = {f"i{g}": {"kernel": u(d, H, fan=d), "bias": u(H, fan=H)} for g in "rzn"}
-        cell.update({f"h{g}": {"kernel": u(H, H, fan=H)} for g in "rzn"})
-        cell["hn"]["bias"] = u(H, fan=H)
-        stack[f"gru_{i}"] = {"cell": cell}
-    reg = {"kernel": u(H, C, fan=H), "bias": u(C, fan=H)}
+    stack = {f"gru_{i}": {"cell": random_gru_cell(rng, D if i == 0 else H, H)}
+             for i in range(layers)}
+    reg = {"kernel": _uniform(rng, H, C, fan=H), "bias": _uniform(rng, C, fan=H)}
     return {"params": {"GRUStack_0": stack, "regression": reg}}
+
+
+def random_asr_params(rng, cfg, idim):
+    """A flax-layout TransformerASR parameter tree of seeded numpy arrays at
+    flax's init scales (kernels N(0, 1/fan_in)), with small random biases
+    and LayerNorm affines so that every leaf matters."""
+    A, H = cfg.adim, cfg.aheads
+
+    def normal(*shape, fan):
+        return (rng.standard_normal(shape) / np.sqrt(fan)).astype(np.float32)
+
+    def small(*shape):
+        return (0.02 * rng.standard_normal(shape)).astype(np.float32)
+
+    def dense(i, o):
+        return {"kernel": normal(i, o, fan=i), "bias": small(o)}
+
+    def norm():
+        return {"scale": 1 + small(A), "bias": small(A)}
+
+    def mha():
+        p = {n: {"kernel": normal(A, H, A // H, fan=A), "bias": small(H, A // H)}
+             for n in ("query", "key", "value")}
+        p["out"] = {"kernel": normal(H, A // H, A, fan=A), "bias": small(A)}
+        return p
+
+    def block(ff, cross):
+        p = {f"LayerNorm_{i}": norm() for i in range(3 if cross else 2)}
+        p.update({f"MultiHeadDotProductAttention_{i}": mha() for i in range(2 if cross else 1)})
+        p.update(Dense_0=dense(A, ff), Dense_1=dense(ff, A))
+        return p
+
+    d2 = ((idim - 1) // 2 - 1) // 2
+    embed = {"Conv_0": {"kernel": normal(3, 3, 1, A, fan=9), "bias": small(A)},
+             "Conv_1": {"kernel": normal(3, 3, A, A, fan=9 * A), "bias": small(A)},
+             "Dense_0": dense(d2 * A, A)}
+    enc = {"embed": embed, "after_norm": norm(),
+           **{f"layer_{i}": block(cfg.eunits, False) for i in range(cfg.elayers)}}
+    dec = {"embed": {"embedding": normal(cfg.vocab_size, A, fan=A)}, "after_norm": norm(),
+           "output": dense(A, cfg.vocab_size),
+           **{f"layer_{i}": block(cfg.dunits, True) for i in range(cfg.dlayers)}}
+    return {"params": {"encoder": enc, "decoder": dec, "ctc_head": dense(A, cfg.vocab_size)}}
+
+
+def random_rnnlm_params(rng, V, E, H):
+    """A flax-layout one-layer GRU RNNLM parameter tree."""
+    return {"params": {
+        "embed": {"embedding": (rng.standard_normal((V, E)) / np.sqrt(E)).astype(np.float32)},
+        "rnn": {"gru_0": {"cell": random_gru_cell(rng, E, H)}},
+        "output": {"kernel": _uniform(rng, H, V, fan=H), "bias": _uniform(rng, V, fan=H)},
+    }}
+
+
+def e2e_phase(x, lens, fdlp_cfg, rng, dev):
+    """The e2e recognition slice (recipes/configs/wsj_fdlp_e2e.json) on the
+    featgen batch: FDLP (K1) -> global CMVN -> TransformerASR (vocab 52,
+    adim 256, 4 heads, 12 encoder / 6 decoder layers, FFN 2048) -> beam 10
+    joint CTC/attention search (ctc_weight 0.3, penalty 0, max_len 100)
+    fused with a 1 x 1000 GRU RNNLM (embed 256) at weight 1.0, seeded
+    random flax-layout weights. Returns K1's launches over the driven run."""
+    import string
+
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import (
+        beam_search_encoded,
+        tokens_to_list,
+    )
+    from speech_recognition_tools_tpu_torch.dsp.fdlp import (
+        FdlpConfig,
+        fdlp_spectrogram_batch,
+    )
+    from speech_recognition_tools_tpu_torch.infer.recognize import recognize_batch
+    from speech_recognition_tools_tpu_torch.io.jax_params import (
+        rnnlm_from_jax,
+        transformer_asr_from_jax,
+    )
+    from speech_recognition_tools_tpu_torch.io.text import build_char_vocab, decode_tokens
+    from speech_recognition_tools_tpu_torch.models.rnnlm import RNNLM
+    from speech_recognition_tools_tpu_torch.models.transformer_asr import (
+        TransformerASR,
+        TransformerASRConfig,
+    )
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import lpc_cepstra
+    from speech_recognition_tools_tpu_torch.utils.cmvn import apply_cmvn, cmvn_stats_masked
+
+    cfg = TransformerASRConfig(**E2E_AM)
+    idim, V, eos = fdlp_cfg.nfilters, cfg.vocab_size, cfg.eos_id
+    asr_params = random_asr_params(rng, cfg, idim)
+    lm_params = random_rnnlm_params(rng, V, cfg.adim, E2E_LM_HIDDEN)
+
+    def build(device):
+        asr = TransformerASR(cfg, idim, device=device)
+        asr.load_state_dict(transformer_asr_from_jax(asr_params))
+        lm = RNNLM(V, cfg.adim, E2E_LM_HIDDEN, 1, device=device)
+        lm.load_state_dict(rnnlm_from_jax(lm_params))
+        return asr.eval(), lm.eval()
+
+    asr, lm = build(dev)
+    vocab = build_char_vocab([string.ascii_letters[: V - 4]])
+    assert len(vocab) == V
+    B = len(lens)
+    audio_s = float(lens.sum()) / fdlp_cfg.srate
+    feats, nfr = fdlp_spectrogram_batch(x, lens, fdlp_cfg, device=dev)
+    mean, std = cmvn_stats_masked(feats, nfr)
+
+    def front(c):
+        f, n = fdlp_spectrogram_batch(x, lens, c, device=dev)
+        return apply_cmvn(f, mean, std), n
+
+    def encode(f, n, model=asr):
+        with torch.no_grad():
+            return model.encode(f, n)
+
+    def search(mem, enc_len, ctc, model=asr, fused=lm, timings=None, max_len=E2E_MAX_LEN):
+        with torch.no_grad():
+            return beam_search_encoded(model, mem, enc_len, ctc, lm=fused, timings=timings,
+                                       max_len=max_len, **E2E_BEAM)
+
+    # the main path, counted, through the entry point a user calls
+    lpc_cepstra.launches = 0
+    t0 = time.perf_counter()
+    texts = recognize_batch(x, lens, fdlp_cfg, mean, std, asr, vocab, lm=lm, **E2E_BEAM,
+                            max_len=E2E_MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = lpc_cepstra.launches
+    assert launches > 0, "the e2e path did not launch K1"
+
+    # the same chain part by part: timed, and held to the one call
+    t_front, (feats, nfr) = wall_s(lambda: front(fdlp_cfg))
+    t_enc, (mem, enc_len, ctc) = wall_s(lambda: encode(feats, nfr))
+    t_beam, (toks, scores) = wall_s(lambda: search(mem, enc_len, ctc), repeats=1)
+    steps = int((toks[0, 0] >= 0).sum()) - 1
+    hyps = [tokens_to_list(toks[b], scores[b], eos) for b in range(B)]
+    assert texts == [decode_tokens(h, vocab) for h in hyps], "recognize_batch != its parts"
+    assert all(isinstance(t, str) for t in texts) and len(texts) == B
+    assert toks.shape == (B, E2E_BEAM["beam_size"], E2E_MAX_LEN + 1)
+    assert torch.isfinite(scores).all(), scores
+    assert mem.shape == (B, ctc.shape[1], cfg.adim) and ctc.shape[2] == V
+    assert torch.isfinite(valid_rows(mem, enc_len)).all()
+    assert torch.isfinite(valid_rows(ctc, enc_len)).all()
+
+    # CTC log-probs from K1 features against those from the plain backend's
+    f_s, n_s = front(FdlpConfig(**{**fdlp_cfg.__dict__, "lpc_backend": "scan"}))
+    assert torch.equal(nfr, n_s)
+    _, _, ctc_s = encode(f_s, n_s)
+    ctc_err = (valid_rows(torch.log_softmax(ctc, -1), enc_len)
+               - valid_rows(torch.log_softmax(ctc_s, -1), enc_len)).abs().max().item()
+    assert ctc_err <= E2E_CTC_TOL, ctc_err
+
+    # the encoder on the card against the CPU, two utterances
+    cpu_asr, cpu_lm = build("cpu")
+    two = nfr[:2].cpu()
+    f2 = feats[:2, : int(two.max())]
+    m_c, l_c, c_c = encode(f2.cpu(), two, model=cpu_asr)
+    m_g, l_g, c_g = encode(f2, nfr[:2])
+    assert torch.equal(l_g.cpu(), l_c)
+    enc_err = max((valid_rows(g.cpu(), l_c) - valid_rows(c, l_c)).abs().max().item()
+                  for g, c in ((m_g, m_c), (c_g, c_c)))
+    assert enc_err < 1e-4, enc_err
+
+    # the search on the card against the CPU from the same memory
+    t_g, s_g = search(mem[:2], enc_len[:2], ctc[:2])
+    t_c, s_c = search(mem[:2].cpu(), enc_len[:2].cpu(), ctc[:2].cpu(), model=cpu_asr,
+                      fused=cpu_lm)
+    best_g, best_c = s_g.max(1).values.cpu(), s_c.max(1).values
+    beam_rel = ((best_g - best_c).abs() / best_c.abs()).max().item()
+    same = sum(tokens_to_list(t_g[b], s_g[b], eos) == tokens_to_list(t_c[b], s_c[b], eos)
+               for b in range(2))
+    assert beam_rel <= 1e-4, (best_g, best_c)
+
+    # the search at the recog_e2e CLI's default max_len, per-step parts
+    # (the device synchronised between parts), and profiles
+    t_cli, (toks_cli, scores_cli) = wall_s(
+        lambda: search(mem, enc_len, ctc, max_len=E2E_CLI_MAX_LEN), repeats=1)
+    steps_cli = int((toks_cli[0, 0] >= 0).sum()) - 1
+    assert torch.isfinite(scores_cli).all(), scores_cli
+    parts = {}
+    search(mem, enc_len, ctc, timings=parts)
+    device_breakdown("e2e encoder batch", lambda: encode(feats, nfr))
+    device_breakdown("e2e beam search, 10 steps", lambda: search(mem, enc_len, ctc, max_len=10))
+    total, total_cli = t_front + t_enc + t_beam, t_front + t_enc + t_cli
+    log(f"[e2e] wsj_fdlp_e2e {B} x {lens.min() / 16000:.1f}-{lens.max() / 16000:.1f} s "
+        f"({audio_s:.1f} s audio), {int(enc_len.max())} encoder frames max, vocab {V}, "
+        f"{cfg.elayers}/{cfg.dlayers} layers, beam {E2E_BEAM['beam_size']}, RNNLM 1 x "
+        f"{E2E_LM_HIDDEN}: K1 launches {launches}; first recognize_batch call {t_first:.2f} s")
+    log(f"[e2e] per batch at max_len {E2E_MAX_LEN}: front-end {t_front * 1e3:.2f} ms, encoder "
+        f"{t_enc * 1e3:.2f} ms, beam search {t_beam * 1e3:.1f} ms; total {total * 1e3:.1f} ms = "
+        f"{audio_s / total:.1f}x real time")
+    log(f"[e2e] beam steps run {steps} of max_len {E2E_MAX_LEN}: "
+        f"{t_beam / steps * 1e3:.2f} ms/step")
+    log(f"[e2e] at the CLI's max_len {E2E_CLI_MAX_LEN} (measured): beam search "
+        f"{t_cli * 1e3:.1f} ms, {steps_cli} steps run, {t_cli / steps_cli * 1e3:.2f} ms/step; "
+        f"total {total_cli * 1e3:.1f} ms = {audio_s / total_cli:.1f}x real time")
+    log("[e2e] per step, synchronised between parts: " + ", ".join(
+        f"{k} {v / steps * 1e3:.2f} ms" for k, v in parts.items()))
+    log(f"[e2e] max|CTC logp(K1) - CTC logp(plain)| {ctc_err:.3e} (limit {E2E_CTC_TOL}); "
+        f"encoder cuda vs cpu max|err| {enc_err:.3e} (atol 1e-4); beam cuda vs cpu best "
+        f"score rel err {beam_rel:.3e} (limit 1e-4), token-identical {same} of 2")
+    log(f"[e2e] sample hypotheses: {texts[0][:60]!r} / {texts[1][:60]!r}")
+    return launches
 
 
 def main():
@@ -489,13 +723,18 @@ def main():
         f"max|kernel - plain|={main_err:.3e} kernel_ms={k_ms:.4f} call_ms={call_ms:.4f} "
         f"plain_ms={p_ms:.3f} bound_ms={bound:.5f} ({by})")
 
-    # ---- 5. every kernel of the port ----
+    # ---- 5. the e2e slice at wsj_fdlp_e2e ----
+    e2e_launches = e2e_phase(x, lens, e2e, rng, dev)
+
+    # ---- 6. every kernel of the port ----
     log(json.dumps({"kernels": [{
         "name": "lpc_cepstra",
         "route": "cuda",
         "source": "speech_recognition_tools_tpu_torch/csrc/lpc_cepstra.cu",
         "replaces": "speech_recognition_tools_tpu/ops/pallas_lpc.py:31",
         "launches": main_launches,
+        "launches_by_path": {"featgen": featgen_launches, "hybrid": main_launches,
+                             "e2e": e2e_launches},
         "max_abs_err": main_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -505,7 +744,7 @@ def main():
         "library_ms": None,
     }]}))
 
-    # ---- 6. contract line ----
+    # ---- 7. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,9 @@ Weights are stored gate-stacked (r|z|n) as weight_ih (3H, D), bias_ih
 (3H,), weight_hh (3H, H) and bias_hn (H,); io/jax_params.py maps the JAX
 package's parameter tree onto them. The input projection runs as one matmul
 over all frames, then a loop over time steps does the recurrent part (plain
-PyTorch; cuDNN's GRU is not used).
+PyTorch; cuDNN's GRU is not used). The loop and `step` (one token at a
+time, for the RNNLM's beam-search fusion) share `MaskedGRULayer.cell`, so
+one gate algebra serves both.
 """
 
 import math
@@ -55,21 +57,30 @@ class MaskedGRULayer(nn.Module):
                 p.copy_(torch.rand(p.shape, generator=generator, dtype=p.dtype)
                         .mul_(2 * bound).sub_(bound))
 
+    def cell(self, xi: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """One step of the gate algebra: the input projection xi = W_i x +
+        b_i (N, 3H) and the carry h (N, H) -> the new carry (N, H)."""
+        H = self.hidden_size
+        hh = h @ self.weight_hh.T
+        x_r, x_z, x_n = xi.split(H, dim=-1)
+        h_r, h_z, h_n = hh.split(H, dim=-1)
+        r = torch.sigmoid(x_r + h_r)
+        z = torch.sigmoid(x_z + h_z)
+        n = torch.tanh(x_n + r * (h_n + self.bias_hn))
+        return (1.0 - z) * n + z * h
+
+    def step(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """One time step for a batch of inputs x (N, D) and carries h (N, H)."""
+        return self.cell(torch.nn.functional.linear(x, self.weight_ih, self.bias_ih), h)
+
     def forward(self, inputs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         B, T, _ = inputs.shape
-        H = self.hidden_size
         mask = length_mask(lengths, T)
         xi = torch.nn.functional.linear(inputs, self.weight_ih, self.bias_ih)
-        h = inputs.new_zeros((B, H))
+        h = inputs.new_zeros((B, self.hidden_size))
         outs = []
         for t in range(T):
-            hh = h @ self.weight_hh.T
-            x_r, x_z, x_n = xi[:, t].split(H, dim=-1)
-            h_r, h_z, h_n = hh.split(H, dim=-1)
-            r = torch.sigmoid(x_r + h_r)
-            z = torch.sigmoid(x_z + h_z)
-            n = torch.tanh(x_n + r * (h_n + self.bias_hn))
-            h_new = (1.0 - z) * n + z * h
+            h_new = self.cell(xi[:, t], h)
             keep = mask[:, t, None]
             h = torch.where(keep, h_new, h)
             outs.append(torch.where(keep, h_new, torch.zeros_like(h_new)))
@@ -97,6 +108,17 @@ class GRUStack(nn.Module):
             if i + 1 < len(self.layers):
                 x = self.dropout(x)
         return x
+
+    def step(self, x: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+        """One time step through every layer: x (N, D), state (layers, N, H)
+        -> the new state (layers, N, H); its last layer is the output."""
+        new = []
+        for i, layer in enumerate(self.layers):
+            x = layer.step(x, state[i])
+            new.append(x)
+            if i + 1 < len(self.layers):
+                x = self.dropout(x)
+        return torch.stack(new)
 
 
 class RNNClassifier(nn.Module):
