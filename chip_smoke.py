@@ -48,9 +48,31 @@ exits non-zero. Phases:
      more search, at the recog_e2e CLI's default max_len 200; ms per beam
      step split into decoder, CTC prefix, LM, top-k and update, and
      profiles of the encoder and of ten beam steps;
-  6. one JSON line describing every kernel of the port (`launches` is the
-     main path's count, `launches_by_path` each path's);
-  7. last line: {"ok": true, "device": {...}}.
+  6. hybrid training at timit_hybrid on phase 4's 32 utterances: FDLP (K1)
+     -> global CMVN -> build_egs with seeded frame labels over 3,376
+     classes -> train_am.main --arch rnn (3 x 512 GRU, Adam lr 1e-3, clip
+     1.0, lrr 0.5) for 2 epochs of 2 batches plus a dev batch; finite
+     losses, a checkpoint that loads back, K1's launches counted over the
+     path; one step card against CPU on the same weights and batch (loss
+     1e-5 relative, gradient norm 1e-4 relative, update 1e-3 x lr); ms a
+     step split into forward, backward and optimizer, peak memory and a
+     profile;
+  7. e2e training at wsj_fdlp_e2e on phase 3's 32 utterances: FDLP (K1) ->
+     global CMVN -> build_egs (each utterance twice, with two seeded
+     transcripts over the 52-symbol vocabulary that CTC can align, some
+     with repeated characters) -> train_e2e.main at full width (dropout
+     0.1, Noam warmup 25000 factor 10, Adam b2 0.98, clip 5) for 2 epochs
+     of 2 batches of 32 with --average_last 2; its final_avg checkpoint
+     decodes two utterances through recognize_batch; one step at dropout
+     0 card against CPU (loss and its CTC and attention parts 1e-5
+     relative, gradient norm 1e-4 relative); the port's CTC loss against
+     torch's F.ctc_loss on the card (per-token losses atol 1e-4, both
+     timed); ms a step split into encoder, decoder, CTC loss, the rest of
+     the loss, backward and optimizer, peak memory, a profile and audio
+     seconds trained per wall second;
+  8. one JSON line describing every kernel of the port (`launches` is the
+     hybrid main path's count, `launches_by_path` each path's);
+  9. last line: {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -58,6 +80,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -85,6 +108,16 @@ E2E_BEAM = dict(beam_size=10, ctc_weight=0.3, penalty=0.0, lm_weight=1.0)
 E2E_MAX_LEN = 100
 E2E_CLI_MAX_LEN = 200
 E2E_CTC_TOL = 1.2e-3
+
+# training (phases 6-7): timit_hybrid's am section and wsj_fdlp_e2e's
+# (:17-34), at full width; two epochs of two batches each
+HYBRID_TRAIN = dict(num_layers=3, hidden_dim=512, optimizer="adam", learning_rate=1e-3,
+                    lrr=0.5, lr_tol=0.0, clip_thresh=1.0, batch_size=16, epochs=2)
+HYBRID_CLASSES = 3376
+E2E_TRAIN = dict(mtlalpha=0.3, lsm_weight=0.1, dropout=0.1, warmup_steps=25000,
+                 transformer_lr=10.0, grad_clip=5.0, batch_size=32, epochs=2,
+                 average_last=2)
+E2E_TRAIN_DECODE_LEN = 50  # max_len of the final_avg checkpoint's one search
 
 # (order, coeff_num) of the front-ends in recipes/configs: wsj/chime4/
 # conformer e2e, timit_hybrid, reverb
@@ -489,6 +522,357 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
     return launches
 
 
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _synced(fn):
+    """(seconds, result) of fn() with the device synchronised around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _worst_grad(got, ref):
+    """The parameter whose gradient differs most (by norm): (its name, the
+    difference's norm over the global gradient norm, over its own)."""
+    diff = {k: (got[k] - ref[k]).norm().item() for k in ref}
+    total = sum(v.norm().item() ** 2 for v in ref.values()) ** 0.5
+    k = max(diff, key=diff.get)
+    return k, diff[k] / total, diff[k] / max(ref[k].norm().item(), 1e-30)
+
+
+def _median_parts(rows):
+    return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+
+
+def hybrid_train_phase(xh, lh, rng, dev, tmp):
+    """Hybrid training at timit_hybrid (recipes/configs/timit_hybrid.json):
+    FDLP (K1) -> global CMVN -> egs with seeded frame labels ->
+    train_am.main --arch rnn at full width. Returns K1's launches over the
+    path (featgen through training)."""
+    import os
+
+    from speech_recognition_tools_tpu_torch.cli import train_am
+    from speech_recognition_tools_tpu_torch.dsp.fdlp import FdlpConfig, fdlp_spectrogram_batch
+    from speech_recognition_tools_tpu_torch.io.egs import build_egs, iter_egs_batches
+    from speech_recognition_tools_tpu_torch.io.jax_params import rnn_classifier_from_jax
+    from speech_recognition_tools_tpu_torch.models.recurrent import RNNClassifier
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import lpc_cepstra
+    from speech_recognition_tools_tpu_torch.train.checkpoint import load_checkpoint
+    from speech_recognition_tools_tpu_torch.train.trainer import TrainConfig, Trainer, host_copy
+    from speech_recognition_tools_tpu_torch.utils.cmvn import cmvn_stats_masked
+
+    hyb = FdlpConfig()
+    H = HYBRID_TRAIN
+    egs, dev_egs, store = (os.path.join(tmp, d) for d in ("hyb_egs", "hyb_dev", "hyb_am"))
+    lpc_cepstra.launches = 0
+    t_path = time.perf_counter()
+    feats, nfr = fdlp_spectrogram_batch(xh, lh, hyb, device=dev)
+    mean, std = (t.cpu().numpy() for t in cmvn_stats_masked(feats, nfr))
+    utts = [(f"utt{b:02d}", feats[b, : int(nfr[b])].cpu().numpy()) for b in range(len(lh))]
+    labels = {k: rng.randint(0, HYBRID_CLASSES, f.shape[0]) for k, f in utts}
+    build_egs(iter(utts), egs, labels, cmvn=(mean, std), num_targets=HYBRID_CLASSES)
+    build_egs(iter(utts[: H["batch_size"]]), dev_egs, labels, cmvn=(mean, std),
+              num_targets=HYBRID_CLASSES)
+    argv = [egs, store, "--arch", "rnn", "--dev_egs_dir", dev_egs, "--device", str(dev)]
+    argv += [a for k, v in H.items() for a in (f"--{k}", str(v))]
+    st = train_am.main(argv)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t_path
+    launches = lpc_cepstra.launches
+    assert launches > 0, "the hybrid training path did not launch K1"
+    assert len(st.history) == H["epochs"], st.history
+    assert all(np.isfinite(h["train_loss"]) and np.isfinite(h["dev_loss"])
+               for h in st.history), st.history
+    assert sorted(os.listdir(store)) == ["epoch_1", "epoch_2", "final"], os.listdir(store)
+    payload, meta = load_checkpoint(os.path.join(store, "final"))
+    back = RNNClassifier(hyb.nfilters, H["num_layers"], H["hidden_dim"], HYBRID_CLASSES,
+                         device=dev)
+    back.load_state_dict(rnn_classifier_from_jax(payload["params"]))
+    assert all(torch.equal(p.cpu(), st.best_params[k]) for k, p in back.named_parameters())
+    assert meta["model_class"] == "RNNClassifier" and meta["num_classes"] == HYBRID_CLASSES
+
+    args = train_am.get_parser().parse_args(argv)
+    loss_fn = train_am.make_loss(args)
+    cfg = TrainConfig(learning_rate=H["learning_rate"], clip_threshold=H["clip_thresh"])
+
+    def fresh(device):
+        m = RNNClassifier(hyb.nfilters, H["num_layers"], H["hidden_dim"], HYBRID_CLASSES,
+                          device=device)
+        m.reset_parameters(torch.Generator().manual_seed(7))
+        tr = Trainer(m, loss_fn, cfg)
+        return tr, tr.init_state()
+
+    def to(batch, device):
+        return {k: torch.as_tensor(v, device=device) for k, v in batch.items() if k != "keys"}
+
+    # one step, card against CPU: identical weights, the 4 shortest utterances
+    small = next(iter_egs_batches(egs, 4))
+    steps = {}
+    for device in ("cpu", dev):
+        tr, st1 = fresh(device)
+        before = host_copy(st1.params)
+        loss, _, gnorm = tr.train_step(st1, to(small, device))
+        grads = {k: p.grad.detach().cpu() for k, p in st1.params.items()}
+        delta = {k: p.detach().cpu() - before[k] for k, p in st1.params.items()}
+        steps[str(device)] = (loss.item(), gnorm, grads, delta)
+    (l_c, g_c, gr_c, d_c), (l_g, g_g, gr_g, d_g) = steps["cpu"], steps[str(dev)]
+    # the update the optimizer makes on the card against the one it makes on
+    # the CPU from the same (the card's) gradients
+    same = {k: v.clone() for k, v in before.items()}
+    opt_c = tr.opt
+    opt_c.apply(same, gr_g, opt_c.init(same))
+    upd_err = max(((d_g[k] - (same[k] - before[k])).abs().max().item() for k in d_c))
+    # end to end, Adam's first update lr * g / (|g| + eps) turns gradient
+    # rounding on entries with |g| near eps into differences up to lr
+    e2e_err = max((d_g[k] - d_c[k]).abs().max().item() for k in d_c)
+    off = [gr_c[k][(d_g[k] - d_c[k]).abs() > 1e-3 * H["learning_rate"]] for k in d_c]
+    off = torch.cat([o.flatten() for o in off])
+    off_g = off.abs().max().item() if off.numel() else 0.0
+    g_worst = _worst_grad(gr_g, gr_c)
+    assert _rel(l_g, l_c) <= 1e-5, (l_g, l_c)
+    assert _rel(g_g, g_c) <= 1e-4, (g_g, g_c)
+    assert upd_err <= 1e-3 * H["learning_rate"], upd_err
+
+    # a full batch of the recipe's 32: ms a step by part, memory, profile
+    tr, st2 = fresh(dev)
+    full = to(next(iter_egs_batches(egs, 32)), dev)
+    tr.train_step(st2, full)
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        for p in st2.params.values():
+            p.grad = None
+        t_f, (loss, _) = _synced(lambda: loss_fn(tr.model, full, True))
+        t_b, _ = _synced(loss.backward)
+        grads = {k: p.grad for k, p in st2.params.items()}
+        t_o, (st2.opt_state, _) = _synced(lambda: tr.opt.apply(st2.params, grads, st2.opt_state))
+        rows.append({"forward": t_f, "backward": t_b, "optimizer": t_o})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    parts = _median_parts(rows)
+    t_step, _ = wall_s(lambda: tr.train_step(st2, full))
+    device_breakdown(f"hybrid train step (B={len(full['lengths'])})",
+                     lambda: tr.train_step(st2, full))
+    audio_s = float(full["lengths"].sum()) / hyb.frate
+    log(f"[hybrid-train] timit_hybrid: train_am.main --arch rnn {H['num_layers']} x "
+        f"{H['hidden_dim']} GRU, {HYBRID_CLASSES} "
+        f"classes, {H['epochs']} epochs x 2 batches of {H['batch_size']} + a dev batch: "
+        f"{t_path:.2f} s for FDLP -> egs -> train_am.main, K1 launches {launches}; "
+        f"losses " + ", ".join(f"train {h['train_loss']:.4f} dev {h['dev_loss']:.4f}"
+                               for h in st.history))
+    log(f"[hybrid-train] card vs cpu, one step on 4 utterances: loss {l_g:.6f} / {l_c:.6f} "
+        f"(rel {_rel(l_g, l_c):.3e}, limit 1e-5), grad norm {g_g:.6f} / {g_c:.6f} "
+        f"(rel {_rel(g_g, g_c):.3e}, limit 1e-4); Adam update from the card's gradients, card "
+        f"vs cpu: max|diff| {upd_err:.3e} (limit {1e-3 * H['learning_rate']:.1e}); end to end "
+        f"max|update diff| {e2e_err:.3e}, {off.numel()} entries above the limit, their "
+        f"largest |gradient| {off_g:.3e}; the gradient that differs most: {g_worst[0]}, "
+        f"|diff| {g_worst[1]:.3e} of the global norm, {g_worst[2]:.3e} of its own")
+    log(f"[hybrid-train] B={len(full['lengths'])} ({audio_s:.1f} s audio, {int(full['feats'].shape[1])} frames "
+        f"padded): {t_step * 1e3:.1f} ms a step = {audio_s / t_step:.1f} audio s per s; "
+        f"synchronised parts: "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in parts.items())
+        + f"; peak memory {peak:.2f} GiB")
+    return launches
+
+
+def random_transcript(rng, letters, n_chars, repeat_p=0.15):
+    """n_chars of words over `letters`, with doubled letters at repeat_p."""
+    out = []
+    while len(out) < n_chars:
+        if out and out[-1] != " " and rng.rand() < 0.2:
+            out.append(" ")
+        elif out and out[-1] != " " and rng.rand() < repeat_p:
+            out.append(out[-1])
+        else:
+            out.append(letters[rng.randint(len(letters))])
+    return "".join(out).strip().replace("  ", " ")
+
+
+def e2e_train_phase(x, lens, fdlp_cfg, rng, dev, tmp):
+    """e2e training at wsj_fdlp_e2e: FDLP (K1) -> global CMVN -> egs +
+    seeded transcripts -> train_e2e.main at full width; its final_avg
+    checkpoint decodes through recognize_batch. Returns K1's launches over
+    the training path (featgen through training)."""
+    import os
+    import string
+
+    from speech_recognition_tools_tpu_torch.cli import train_e2e
+    from speech_recognition_tools_tpu_torch.dsp.fdlp import fdlp_spectrogram_batch
+    from speech_recognition_tools_tpu_torch.infer.recognize import recognize_batch
+    from speech_recognition_tools_tpu_torch.io.egs import build_egs
+    from speech_recognition_tools_tpu_torch.io.jax_params import transformer_asr_from_jax
+    from speech_recognition_tools_tpu_torch.io.text import build_char_vocab, read_text_file
+    from speech_recognition_tools_tpu_torch.models.transformer_asr import (
+        TransformerASR,
+        TransformerASRConfig,
+        asr_loss,
+        ctc_loss,
+        decoder_inputs,
+        joint_loss,
+        noam_schedule,
+        subsampled_length,
+    )
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import lpc_cepstra
+    from speech_recognition_tools_tpu_torch.train.checkpoint import load_checkpoint
+    from speech_recognition_tools_tpu_torch.train.optim import ClipAdam
+    from speech_recognition_tools_tpu_torch.utils.cmvn import cmvn_stats_masked
+
+    E = E2E_TRAIN
+    V = E2E_AM["vocab_size"]
+    letters = string.ascii_letters[: V - 4]
+    vocab = build_char_vocab([letters])
+    assert len(vocab) == V
+    egs, store, text = (os.path.join(tmp, d) for d in ("e2e_egs", "e2e_am", "e2e_text"))
+
+    lpc_cepstra.launches = 0
+    t_path = time.perf_counter()
+    feats, nfr = fdlp_spectrogram_batch(x, lens, fdlp_cfg, device=dev)
+    mean, std = (t.cpu().numpy() for t in cmvn_stats_masked(feats, nfr))
+    utts, texts = [], {}
+    for b in range(len(lens)):
+        f = feats[b, : int(nfr[b])].cpu().numpy()
+        enc_len = ((f.shape[0] - 1) // 2 - 1) // 2
+        top = (enc_len - 1) // 2  # CTC can align it even if every letter repeats
+        for copy in "ab":
+            key = f"utt{b:02d}{copy}"
+            utts.append((key, f))
+            texts[key] = random_transcript(rng, letters, rng.randint(top // 2, top + 1))
+    with open(text, "w") as fh:
+        fh.writelines(f"{k} {v}\n" for k, v in texts.items())
+    build_egs(iter(utts), egs, cmvn=(mean, std))
+    argv = [egs, text, store, "--device", str(dev)]
+    argv += [a for k, v in {**E2E_AM, **E}.items() if k != "vocab_size"
+             for a in (f"--{k}", str(v))]
+    losses = train_e2e.main(argv)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t_path
+    launches = lpc_cepstra.launches
+    assert launches > 0, "the e2e training path did not launch K1"
+    assert len(losses) == E["epochs"] and all(np.isfinite(losses)), losses
+    assert sorted(os.listdir(store)) == ["epoch_1", "epoch_2", "final_avg", "vocab.json"]
+    assert read_text_file(text) == texts
+
+    cfg = TransformerASRConfig(**E2E_AM, dropout=E["dropout"], mtlalpha=E["mtlalpha"],
+                               lsm_weight=E["lsm_weight"])
+    payload, meta = load_checkpoint(os.path.join(store, "final_avg"))
+    assert meta["extra"] == {"averaged": 2} and meta["vocab_size"] == V
+    asr = TransformerASR(cfg, fdlp_cfg.nfilters, device=dev)
+    asr.load_state_dict(transformer_asr_from_jax(payload["params"]))
+    asr.eval()
+    t_rec, hyps = _synced(lambda: recognize_batch(
+        x[:2], lens[:2], fdlp_cfg, mean, std, asr, vocab, beam_size=E2E_BEAM["beam_size"],
+        ctc_weight=E2E_BEAM["ctc_weight"], max_len=E2E_TRAIN_DECODE_LEN, device=dev))
+    assert len(hyps) == 2 and all(isinstance(h, str) for h in hyps), hyps
+
+    batches = list(train_e2e.token_batches(egs, texts, vocab, E["batch_size"]))
+    assert len(batches) == 2 and all(len(b["lengths"]) == E["batch_size"] for b in batches)
+    full = {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()}
+
+    # one step at dropout 0, card against CPU, on two utterances
+    cfg0 = TransformerASRConfig(**E2E_AM, dropout=0.0, mtlalpha=E["mtlalpha"],
+                                lsm_weight=E["lsm_weight"])
+    two = {k: torch.as_tensor(v[:2]) for k, v in batches[0].items()}
+    two["feats"] = two["feats"][:, : int(two["lengths"].max())]
+    got = {}
+    for device in ("cpu", dev):
+        m = TransformerASR(cfg0, fdlp_cfg.nfilters, device=device)
+        m.reset_parameters(torch.Generator().manual_seed(11))
+        loss, aux = asr_loss(m, {k: v.to(device) for k, v in two.items()}, cfg0)
+        loss.backward()
+        gnorm = ClipAdam.global_norm([p.grad for p in m.parameters()]).item()
+        got[str(device)] = (loss.item(), aux["ctc"].item(), aux["att"].item(), gnorm,
+                            {k: p.grad.cpu() for k, p in m.named_parameters()})
+    c, g = got["cpu"], got[str(dev)]
+    g_worst = _worst_grad(g[4], c[4])
+    for name, a, b in zip(("loss", "ctc", "att"), g, c):
+        assert _rel(a, b) <= 1e-5, (name, a, b)
+    assert _rel(g[3], c[3]) <= 1e-4, (g[3], c[3])
+
+    # the training model at dropout 0.1 on a batch of 32: parts, memory, profile
+    model = TransformerASR(cfg, fdlp_cfg.nfilters, device=dev)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    params = dict(model.named_parameters())
+    opt = ClipAdam(noam_schedule(cfg.adim, E["warmup_steps"], E["transformer_lr"]),
+                   E["grad_clip"], b2=0.98)
+    opt_state = opt.init(params)
+    step = train_e2e.make_train_step(model, cfg, opt)
+    opt_state, _, _ = step(opt_state, full)
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    tokens_in = decoder_inputs(full["tokens"], full["token_lengths"], cfg.sos_id)
+    for _ in range(3):
+        for p in params.values():
+            p.grad = None
+        model.train()
+        t_e, (mem, enc_len) = _synced(lambda: model.encoder(full["feats"], full["lengths"]))
+        t_d, (ctc_logits, dec_logits) = _synced(
+            lambda: (model.ctc_head(mem), model.decoder(tokens_in, mem, enc_len)))
+        t_l, (loss, aux) = _synced(lambda: joint_loss(ctc_logits, dec_logits, enc_len, full, cfg))
+        t_b, _ = _synced(loss.backward)
+        grads = {k: p.grad for k, p in params.items()}
+        t_o, (opt_state, _) = _synced(lambda: opt.apply(params, grads, opt_state))
+        rows.append({"encoder": t_e, "decoder + ctc head": t_d, "joint loss": t_l,
+                     "backward": t_b, "optimizer": t_o})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    parts = _median_parts(rows)
+
+    # the CTC loss alone: the port's recursion against F.ctc_loss, feasible rows
+    with torch.no_grad():
+        logits = model.ctc_head(model.encoder(full["feats"], full["lengths"])[0])
+    enc_len = subsampled_length(full["lengths"])
+    tl = full["token_lengths"]
+    pos = torch.arange(full["tokens"].shape[1], device=dev)[None, :]
+    enc_pad = (torch.arange(logits.shape[1], device=dev)[None, :] >= enc_len[:, None]).float()
+    tok_pad = (pos >= tl[:, None]).float()
+    port_ctc = ctc_loss(logits, enc_pad, full["tokens"], tok_pad)
+    lib_args = (torch.log_softmax(logits, -1).transpose(0, 1), full["tokens"].long(),
+                enc_len.long(), tl.long())
+    lib_ctc = torch.nn.functional.ctc_loss(*lib_args, reduction="none")
+    assert torch.isfinite(lib_ctc).all(), "a row F.ctc_loss cannot align"
+    ctc_err = ((port_ctc - lib_ctc) / tl).abs().max().item()
+    assert ctc_err <= 1e-4, ctc_err
+    ctc_ms = cuda_ms(lambda: ctc_loss(logits, enc_pad, full["tokens"], tok_pad), reps=1, repeats=3)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.ctc_loss(*lib_args, reduction="none"),
+                     reps=1, repeats=3)
+    lg = logits.detach().requires_grad_()
+    ctc_fb_ms = cuda_ms(lambda: ctc_loss(lg, enc_pad, full["tokens"], tok_pad).sum().backward(),
+                        reps=1, repeats=3)
+    lib_fb_ms = cuda_ms(lambda: torch.nn.functional.ctc_loss(
+        torch.log_softmax(lg, -1).transpose(0, 1), *lib_args[1:], reduction="none")
+        .sum().backward(), reps=1, repeats=3)
+
+    t_step, _ = wall_s(lambda: step(opt_state, full))
+    device_breakdown(f"e2e train step (B={len(full['lengths'])})", lambda: step(opt_state, full))
+    audio_s = float(full["lengths"].sum()) / fdlp_cfg.frate
+    log(f"[e2e-train] wsj_fdlp_e2e: train_e2e.main {cfg.elayers}/{cfg.dlayers} layers adim "
+        f"{cfg.adim}, vocab {V}, "
+        f"{E['epochs']} epochs x 2 batches of {E['batch_size']}: {t_path:.2f} s for FDLP -> "
+        f"egs -> train_e2e.main, K1 launches {launches}; epoch losses "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    log(f"[e2e-train] final_avg -> recognize_batch, 2 utterances, max_len "
+        f"{E2E_TRAIN_DECODE_LEN}: {t_rec:.2f} s; hypotheses {hyps[0][:40]!r} / {hyps[1][:40]!r}")
+    log(f"[e2e-train] card vs cpu, one step at dropout 0 on 2 utterances: loss "
+        f"{g[0]:.6f} / {c[0]:.6f} (rel {_rel(g[0], c[0]):.3e}), ctc rel "
+        f"{_rel(g[1], c[1]):.3e}, att rel {_rel(g[2], c[2]):.3e} (limit 1e-5); grad norm "
+        f"{g[3]:.6f} / {c[3]:.6f} (rel {_rel(g[3], c[3]):.3e}, limit 1e-4); the gradient "
+        f"that differs most: {g_worst[0]}, |diff| {g_worst[1]:.3e} of the global norm, "
+        f"{g_worst[2]:.3e} of its own")
+    log(f"[e2e-train] CTC loss on the card, B={len(full['lengths'])}, {int(logits.shape[1])} "
+        f"frames, "
+        f"{int(full['tokens'].shape[1])} label slots: port {ctc_ms:.2f} ms forward / "
+        f"{ctc_fb_ms:.2f} ms forward+backward; F.ctc_loss (library) {lib_ms:.3f} / "
+        f"{lib_fb_ms:.3f} ms; max|port - library| per token {ctc_err:.3e} (atol 1e-4)")
+    log(f"[e2e-train] B={len(full['lengths'])} ({audio_s:.1f} s audio, {int(full['feats'].shape[1])} frames "
+        f"padded, {int(logits.shape[1])} encoder frames): {t_step * 1e3:.1f} ms a step = "
+        f"{audio_s / t_step:.1f} audio s per s; synchronised parts: "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in parts.items())
+        + f"; peak memory {peak:.2f} GiB")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -726,7 +1110,12 @@ def main():
     # ---- 5. the e2e slice at wsj_fdlp_e2e ----
     e2e_launches = e2e_phase(x, lens, e2e, rng, dev)
 
-    # ---- 6. every kernel of the port ----
+    # ---- 6-7. the training paths ----
+    with tempfile.TemporaryDirectory() as tmp:
+        hybrid_train_launches = hybrid_train_phase(xh, lh, rng, dev, tmp)
+        e2e_train_launches = e2e_train_phase(x, lens, e2e, rng, dev, tmp)
+
+    # ---- 8. every kernel of the port ----
     log(json.dumps({"kernels": [{
         "name": "lpc_cepstra",
         "route": "cuda",
@@ -734,7 +1123,8 @@ def main():
         "replaces": "speech_recognition_tools_tpu/ops/pallas_lpc.py:31",
         "launches": main_launches,
         "launches_by_path": {"featgen": featgen_launches, "hybrid": main_launches,
-                             "e2e": e2e_launches},
+                             "e2e": e2e_launches, "hybrid_train": hybrid_train_launches,
+                             "e2e_train": e2e_train_launches},
         "max_abs_err": main_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -744,7 +1134,7 @@ def main():
         "library_ms": None,
     }]}))
 
-    # ---- 7. contract line ----
+    # ---- 9. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

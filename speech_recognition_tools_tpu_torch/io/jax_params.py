@@ -1,4 +1,4 @@
-"""Carry weights over from the JAX package as numpy arrays.
+"""Carry weights and optimizer state between the port and the JAX package.
 
 `rnn_classifier_from_jax` maps the flax parameter tree of
 speech_recognition_tools_tpu.models.RNNClassifier onto the state_dict of
@@ -7,11 +7,19 @@ speech_recognition_tools_tpu/io/torch_import.py::gru_cell_from_torch for
 this model. Flax names the tree GRUStack_0/gru_{i}/cell/{ir,iz,in,hr,hz,hn}
 plus `regression`; its Dense kernels are [in, out], the r and z biases sit
 on the input path (hr and hz have none) and hn keeps its bias inside the
-`r *` term, exactly where the port's bias_hn sits.
+`r *` term, exactly where the port's bias_hn sits. So the port's bias_ih is
+the three input biases stacked r|z|n, and no bias is folded or split off.
 
 `transformer_asr_from_jax` and `rnnlm_from_jax` do the same for
 models/transformer_asr.py::TransformerASR and models/rnnlm.py::RNNLM, and
 raise if any leaf of the flax tree is left unused.
+
+`rnn_classifier_to_jax` and `transformer_asr_to_jax` are the exact
+inverses (a state_dict, or any dict of tensors keyed like one, such as an
+optimizer's moments -> the flax tree with its outer {"params": ...}): every
+mapping is a transpose, reshape or split, so the round trip is bit-exact.
+`adam_state_to_jax` / `adam_state_from_jax` carry train/optim.py's Adam
+state in the layout flax's `to_state_dict` gives the optax state.
 """
 
 import numpy as np
@@ -22,18 +30,48 @@ def _t(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32))
 
 
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _nest(flat: dict) -> dict:
+    """{path tuple: leaf} -> nested dicts."""
+    out = {}
+    for path, leaf in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+_GATES = ("r", "z", "n")
+
+
 def gru_cell_from_jax(cell: dict) -> dict:
     """flax GRUCell params -> MaskedGRULayer state_dict entries."""
-    gates = ("r", "z", "n")
     return {
         "weight_ih": _t(np.concatenate([np.asarray(cell[f"i{g}"]["kernel"]).T
-                                        for g in gates])),
+                                        for g in _GATES])),
         "bias_ih": _t(np.concatenate([np.asarray(cell[f"i{g}"]["bias"])
-                                      for g in gates])),
+                                      for g in _GATES])),
         "weight_hh": _t(np.concatenate([np.asarray(cell[f"h{g}"]["kernel"]).T
-                                        for g in gates])),
+                                        for g in _GATES])),
         "bias_hn": _t(cell["hn"]["bias"]),
     }
+
+
+def gru_cell_to_jax(sd: dict, prefix: str) -> dict:
+    """MaskedGRULayer entries `<prefix>.{weight_ih,...}` -> flax GRUCell params."""
+    w_ih = np.split(_np(sd[f"{prefix}.weight_ih"]), 3)
+    b_ih = np.split(_np(sd[f"{prefix}.bias_ih"]), 3)
+    w_hh = np.split(_np(sd[f"{prefix}.weight_hh"]), 3)
+    cell = {}
+    for i, g in enumerate(_GATES):
+        cell[f"i{g}"] = {"kernel": w_ih[i].T.copy(), "bias": b_ih[i].copy()}
+        cell[f"h{g}"] = {"kernel": w_hh[i].T.copy()}
+    cell["hn"]["bias"] = _np(sd[f"{prefix}.bias_hn"]).copy()
+    return cell
 
 
 def rnn_classifier_from_jax(params: dict) -> dict:
@@ -53,6 +91,16 @@ def rnn_classifier_from_jax(params: dict) -> dict:
     sd["regression.weight"] = _t(np.asarray(reg["kernel"]).T)
     sd["regression.bias"] = _t(reg["bias"])
     return sd
+
+
+def rnn_classifier_to_jax(sd: dict) -> dict:
+    """The port's RNNClassifier state_dict -> the flax tree
+    {"params": {"GRUStack_0": ..., "regression": ...}} of numpy arrays."""
+    n = len({k.split(".")[2] for k in sd if k.startswith("gru.layers.")})
+    stack = {f"gru_{i}": {"cell": gru_cell_to_jax(sd, f"gru.layers.{i}")} for i in range(n)}
+    reg = {"kernel": _np(sd["regression.weight"]).T.copy(),
+           "bias": _np(sd["regression.bias"]).copy()}
+    return {"params": {"GRUStack_0": stack, "regression": reg}}
 
 
 def _flatten(tree, prefix=()):
@@ -92,62 +140,101 @@ def _dense(leaves, path, sd, name):
     sd[f"{name}.bias"] = _t(leaves.take(*path, "bias"))
 
 
-def _layer_norm(leaves, path, sd, name):
-    sd[f"{name}.weight"] = _t(leaves.take(*path, "scale"))
-    sd[f"{name}.bias"] = _t(leaves.take(*path, "bias"))
+# TransformerASR: each flax leaf is one state_dict entry under one of these
+# layout maps, (flax -> port, port -> flax); `h`, the attention's head
+# count, is read only on the way to flax.
+_KINDS = {
+    "same": (lambda a, h: a, lambda w, h: w),
+    "dense": (lambda a, h: a.T, lambda w, h: w.T),  # [in, out] <-> (out, in)
+    # conv kernels HWIO (3, 3, in, out) <-> (out, in, 3, 3)
+    "conv": (lambda a, h: a.transpose(3, 2, 0, 1), lambda w, h: w.transpose(2, 3, 1, 0)),
+    # DenseGeneral q/k/v kernels (D, H, hd) <-> a Linear over the flat H * hd
+    "heads_in": (lambda a, h: a.reshape(a.shape[0], -1).T,
+                 lambda w, h: w.T.reshape(w.shape[1], h, -1)),
+    "heads_bias": (lambda a, h: a.reshape(-1), lambda w, h: w.reshape(h, -1)),
+    # the out kernel (H, hd, D) <-> a Linear from the flat H * hd
+    "heads_out": (lambda a, h: a.reshape(-1, a.shape[-1]).T,
+                  lambda w, h: w.T.reshape(h, -1, w.shape[0])),
+}
 
 
-def _attention(leaves, path, sd, name):
-    """MultiHeadDotProductAttention: q/k/v kernels (D, H, hd) and biases
-    (H, hd), out kernel (H, hd, D) -> Linears over the flat H * hd axis."""
-    for p in ("query", "key", "value"):
-        k = leaves.take(*path, p, "kernel")
-        sd[f"{name}.{p}.weight"] = _t(k.reshape(k.shape[0], -1).T)
-        sd[f"{name}.{p}.bias"] = _t(leaves.take(*path, p, "bias").reshape(-1))
-    k = leaves.take(*path, "out", "kernel")
-    sd[f"{name}.out.weight"] = _t(k.reshape(-1, k.shape[-1]).T)
-    sd[f"{name}.out.bias"] = _t(leaves.take(*path, "out", "bias"))
+def _asr_layout(n_enc: int, n_dec: int) -> list:
+    """(flax path, state_dict name, kind) for every TransformerASR leaf."""
+    rows = []
+
+    def dense(path, name):
+        rows.append(((*path, "kernel"), f"{name}.weight", "dense"))
+        rows.append(((*path, "bias"), f"{name}.bias", "same"))
+
+    def norm(path, name):
+        rows.append(((*path, "scale"), f"{name}.weight", "same"))
+        rows.append(((*path, "bias"), f"{name}.bias", "same"))
+
+    def attention(path, name):
+        for p in ("query", "key", "value"):
+            rows.append(((*path, p, "kernel"), f"{name}.{p}.weight", "heads_in"))
+            rows.append(((*path, p, "bias"), f"{name}.{p}.bias", "heads_bias"))
+        rows.append(((*path, "out", "kernel"), f"{name}.out.weight", "heads_out"))
+        rows.append(((*path, "out", "bias"), f"{name}.out.bias", "same"))
+
+    def block(path, name, cross):
+        # _MHABlock: flax numbers its submodules in creation order
+        norms = ["norm_self", "norm_src", "norm_ff"] if cross else ["norm_self", "norm_ff"]
+        for i, n in enumerate(norms):
+            norm((*path, f"LayerNorm_{i}"), f"{name}.{n}")
+        for i, n in enumerate(["self_attn", "src_attn"] if cross else ["self_attn"]):
+            attention((*path, f"MultiHeadDotProductAttention_{i}"), f"{name}.{n}")
+        dense((*path, "Dense_0"), f"{name}.ff_in")
+        dense((*path, "Dense_1"), f"{name}.ff_out")
+
+    for i in (0, 1):
+        path = ("encoder", "embed", f"Conv_{i}")
+        rows.append(((*path, "kernel"), f"encoder.embed.conv{i}.weight", "conv"))
+        rows.append(((*path, "bias"), f"encoder.embed.conv{i}.bias", "same"))
+    dense(("encoder", "embed", "Dense_0"), "encoder.embed.out")
+    for i in range(n_enc):
+        block(("encoder", f"layer_{i}"), f"encoder.layers.{i}", cross=False)
+    norm(("encoder", "after_norm"), "encoder.after_norm")
+    rows.append((("decoder", "embed", "embedding"), "decoder.embed.weight", "same"))
+    for i in range(n_dec):
+        block(("decoder", f"layer_{i}"), f"decoder.layers.{i}", cross=True)
+    norm(("decoder", "after_norm"), "decoder.after_norm")
+    dense(("decoder", "output"), "decoder.output")
+    dense(("ctc_head",), "ctc_head")
+    return rows
 
 
-def _block(leaves, path, sd, name, cross):
-    """_MHABlock: flax numbers its submodules in creation order."""
-    norms = ["norm_self", "norm_src", "norm_ff"] if cross else ["norm_self", "norm_ff"]
-    for i, n in enumerate(norms):
-        _layer_norm(leaves, (*path, f"LayerNorm_{i}"), sd, f"{name}.{n}")
-    attns = ["self_attn", "src_attn"] if cross else ["self_attn"]
-    for i, n in enumerate(attns):
-        _attention(leaves, (*path, f"MultiHeadDotProductAttention_{i}"), sd, f"{name}.{n}")
-    _dense(leaves, (*path, "Dense_0"), sd, f"{name}.ff_in")
-    _dense(leaves, (*path, "Dense_1"), sd, f"{name}.ff_out")
-
-
-def _count_layers(leaves, *path):
-    names = {k[len(path)] for k in leaves.left if k[: len(path)] == path}
-    return sum(1 for n in names if n.startswith("layer_"))
+def _count_layers(names, *path):
+    return sum(1 for n in {k[len(path)] for k in names if k[: len(path)] == path}
+               if n.startswith("layer_"))
 
 
 def transformer_asr_from_jax(params: dict) -> dict:
     """flax TransformerASR params (with or without the outer {"params":
     ...}; transformer encoder) -> the port's TransformerASR state_dict."""
     leaves = _Leaves(params)
+    names = list(leaves.left)
     sd = {}
-    for i in (0, 1):  # conv kernels (3, 3, in, out) HWIO -> (out, in, 3, 3)
-        path = ("encoder", "embed", f"Conv_{i}")
-        sd[f"encoder.embed.conv{i}.weight"] = _t(
-            leaves.take(*path, "kernel").transpose(3, 2, 0, 1))
-        sd[f"encoder.embed.conv{i}.bias"] = _t(leaves.take(*path, "bias"))
-    _dense(leaves, ("encoder", "embed", "Dense_0"), sd, "encoder.embed.out")
-    for i in range(_count_layers(leaves, "encoder")):
-        _block(leaves, ("encoder", f"layer_{i}"), sd, f"encoder.layers.{i}", cross=False)
-    _layer_norm(leaves, ("encoder", "after_norm"), sd, "encoder.after_norm")
-    sd["decoder.embed.weight"] = _t(leaves.take("decoder", "embed", "embedding"))
-    for i in range(_count_layers(leaves, "decoder")):
-        _block(leaves, ("decoder", f"layer_{i}"), sd, f"decoder.layers.{i}", cross=True)
-    _layer_norm(leaves, ("decoder", "after_norm"), sd, "decoder.after_norm")
-    _dense(leaves, ("decoder", "output"), sd, "decoder.output")
-    _dense(leaves, ("ctc_head",), sd, "ctc_head")
+    for path, name, kind in _asr_layout(_count_layers(names, "encoder"),
+                                        _count_layers(names, "decoder")):
+        sd[name] = _t(_KINDS[kind][0](leaves.take(*path), None))
     leaves.done()
     return sd
+
+
+def transformer_asr_to_jax(sd: dict, aheads: int) -> dict:
+    """The port's TransformerASR state_dict (or a dict keyed like it) ->
+    the flax tree {"params": ...} of numpy arrays; `aheads` splits the
+    attention's flat q/k/v/out axes into (heads, head_dim)."""
+    n_enc = len({k.split(".")[2] for k in sd if k.startswith("encoder.layers.")})
+    n_dec = len({k.split(".")[2] for k in sd if k.startswith("decoder.layers.")})
+    layout = _asr_layout(n_enc, n_dec)
+    if set(sd) != {name for _, name, _ in layout}:
+        raise ValueError("state_dict keys do not match the TransformerASR layout: "
+                         f"{sorted(set(sd) ^ {name for _, name, _ in layout})}")
+    flat = {path: np.ascontiguousarray(_KINDS[kind][1](_np(sd[name]), aheads))
+            for path, name, kind in layout}
+    return {"params": _nest(flat)}
 
 
 _GRU_CELL_LEAVES = {(f"i{g}", leaf) for g in "rzn" for leaf in ("kernel", "bias")} | {
@@ -169,3 +256,47 @@ def rnnlm_from_jax(params: dict) -> dict:
     _dense(leaves, ("output",), sd, "output")
     leaves.done()
     return sd
+
+
+# ------------------------------------------------------------ optimizer state
+
+
+def adam_state_to_jax(state: dict, params_to_jax, *, clip: bool) -> dict:
+    """train/optim.py::ClipAdam's state -> the tree flax's `to_state_dict`
+    makes of the matching optax state; `params_to_jax` maps a dict keyed
+    like the parameters (the moments) to the flax tree.
+
+    optax.adam(lr) is chain(scale_by_adam, scale_by_learning_rate): with a
+    schedule the second holds the schedule's count, with a fixed rate it
+    holds nothing; clipping adds an empty first link. A fixed rate is the
+    JAX trainer's `inject_hyperparams` form, which wraps the chain with its
+    own count and the learning rate. So, for clip + schedule (train_e2e):
+    {"0": {}, "1": {"0": {"count", "mu", "nu"}, "1": {"count"}}}.
+    """
+    count = np.asarray(state["count"], np.int32)
+    adam = {"count": count, "mu": params_to_jax(state["mu"]),
+            "nu": params_to_jax(state["nu"])}
+    fixed = "learning_rate" in state
+    chain = {"0": adam, "1": {} if fixed else {"count": count}}
+    if clip:
+        chain = {"0": {}, "1": chain}
+    if not fixed:
+        return chain
+    return {"count": count,
+            "hyperparams": {"learning_rate": np.asarray(state["learning_rate"], np.float32)},
+            "hyperparams_states": {}, "inner_state": chain}
+
+
+def adam_state_from_jax(tree: dict, params_from_jax, *, clip: bool) -> dict:
+    """Inverse of adam_state_to_jax: the optax state tree -> ClipAdam's
+    state, with the moments as CPU tensors keyed like the parameters."""
+    fixed = "hyperparams" in tree
+    chain = tree["inner_state"] if fixed else tree
+    if clip:
+        chain = chain["1"]
+    adam = chain["0"]
+    state = {"count": int(adam["count"]), "mu": params_from_jax(adam["mu"]),
+             "nu": params_from_jax(adam["nu"])}
+    if fixed:
+        state["learning_rate"] = float(np.float32(tree["hyperparams"]["learning_rate"]))
+    return state

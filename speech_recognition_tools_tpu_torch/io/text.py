@@ -1,7 +1,8 @@
 """Character vocabulary and transcripts for e2e ASR (host code).
 
 Copy of speech_recognition_tools_tpu/io/text.py::build_char_vocab,
-decode_tokens, load_vocab and read_text_file (the data2json / char-dict
+encode_text, decode_tokens, save_vocab, load_vocab and read_text_file
+(the data2json / char-dict
 stage of the reference's ESPnet recipes, run_fdlp_e1.sh:305-331). The JAX
 package's io/__init__ imports jax, so the port keeps its own copy.
 """
@@ -20,6 +21,12 @@ def build_char_vocab(texts):
     return vocab
 
 
+def encode_text(text, vocab):
+    unk = vocab["<unk>"]
+    space = vocab.get("<space>", vocab.get(" ", unk))
+    return [space if c == " " else vocab.get(c, unk) for c in text]
+
+
 def decode_tokens(tokens, vocab):
     inv = {v: k for k, v in vocab.items()}
     out = []
@@ -31,6 +38,11 @@ def decode_tokens(tokens, vocab):
             s = " "
         out.append(s)
     return "".join(out)
+
+
+def save_vocab(vocab, path):
+    with open(path, "w") as f:
+        json.dump(vocab, f, indent=0, ensure_ascii=False)
 
 
 def load_vocab(path):

@@ -20,14 +20,19 @@ over all frames, then a loop over time steps does the recurrent part (plain
 PyTorch; cuDNN's GRU is not used). The loop and `step` (one token at a
 time, for the RNNLM's beam-search fusion) share `MaskedGRULayer.cell`, so
 one gate algebra serves both.
-"""
 
-import math
+Parameters are drawn as flax draws them (models/flax_init.py): the input
+kernels lecun_normal, each recurrent gate kernel orthogonal, the biases
+zero, the output layer a flax Dense; `reset_parameters(generator)` takes
+an explicit torch.Generator. Dropout acts between GRU layers only and in
+training mode only, as in the JAX GRUStack.
+"""
 
 import torch
 from torch import nn
 
 from speech_recognition_tools_tpu_torch.device import configure_cuda, resolve_device
+from speech_recognition_tools_tpu_torch.models import flax_init
 
 
 def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -51,11 +56,14 @@ class MaskedGRULayer(nn.Module):
         self.reset_parameters()
 
     def reset_parameters(self, generator: torch.Generator | None = None):
-        bound = 1.0 / math.sqrt(self.hidden_size)
-        with torch.no_grad():
-            for p in self.parameters():
-                p.copy_(torch.rand(p.shape, generator=generator, dtype=p.dtype)
-                        .mul_(2 * bound).sub_(bound))
+        """flax GRUCell's defaults: lecun_normal input kernels, orthogonal
+        recurrent kernels (one draw per gate), zero biases."""
+        H = self.hidden_size
+        flax_init.lecun_normal_(self.weight_ih, self.weight_ih.shape[1], generator)
+        for g in range(3):
+            flax_init.orthogonal_(self.weight_hh[g * H:(g + 1) * H], generator)
+        flax_init.zeros_(self.bias_ih)
+        flax_init.zeros_(self.bias_hn)
 
     def cell(self, xi: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """One step of the gate algebra: the input projection xi = W_i x +
@@ -79,9 +87,10 @@ class MaskedGRULayer(nn.Module):
         xi = torch.nn.functional.linear(inputs, self.weight_ih, self.bias_ih)
         h = inputs.new_zeros((B, self.hidden_size))
         outs = []
-        for t in range(T):
-            h_new = self.cell(xi[:, t], h)
-            keep = mask[:, t, None]
+        # unbind, not xi[:, t]: autograd then stacks the per-step gradients
+        # once instead of filling and adding a full-size xi gradient per step
+        for xi_t, keep in zip(xi.unbind(1), mask[..., None].unbind(1)):
+            h_new = self.cell(xi_t, h)
             h = torch.where(keep, h_new, h)
             outs.append(torch.where(keep, h_new, torch.zeros_like(h_new)))
         return torch.stack(outs, dim=1)
@@ -139,6 +148,14 @@ class RNNClassifier(nn.Module):
         self.gru = GRUStack(input_size, num_layers, hidden_size, dropout,
                             device=dev, dtype=dtype)
         self.regression = nn.Linear(hidden_size, out_size, device=dev, dtype=dtype)
+        flax_init.dense_(self.regression)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Draw every parameter as the JAX model's `init` does, from
+        `generator` (a CPU torch.Generator) in a fixed order."""
+        for layer in self.gru.layers:
+            layer.reset_parameters(generator)
+        flax_init.dense_(self.regression, generator)
 
     def forward(self, inputs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """(B, T, D) features, (B,) lengths -> (B, T, out_size) logits."""

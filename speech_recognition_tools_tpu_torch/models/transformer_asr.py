@@ -1,12 +1,15 @@
-"""End-to-end CTC/attention transformer ASR, inference half.
+"""End-to-end CTC/attention transformer ASR.
 
 Port of speech_recognition_tools_tpu/models/transformer_asr.py:
 TransformerASRConfig, chunk_attention_mask, posenc_host, _embed_scale,
 _MHABlock, Conv2dSubsampling, TransformerEncoder, TransformerDecoder (its
-full-prefix mode), TransformerASR (`forward`, `encode`, `decode_step`) and
-greedy_ctc. The reference's headline model is ESPnet's
+full-prefix mode), TransformerASR (`forward`, `encode`, `decode_step`),
+greedy_ctc, and the training half: the joint CTC/attention loss
+(`ctc_loss`, `joint_loss`, `asr_loss`), `noam_schedule` and
+`average_checkpoints`. The reference's headline model is ESPnet's
 e2e_asr_transformer (conf/train.yaml: 12 encoder / 6 decoder layers, adim
-256, 4 heads, FFN 2048, conv2d subsampling).
+256, 4 heads, FFN 2048, conv2d subsampling, mtlalpha 0.3, label smoothing
+0.1).
 
 The modules compute what the flax modules compute, to float32 rounding:
 
@@ -19,17 +22,21 @@ The modules compute what the flax modules compute, to float32 rounding:
     uniform softmax, not NaN;
   - the conv front-end is flax's NHWC (H = time, W = feature) with VALID
     padding; its output is flattened channel-minor, (B, T2, D2, C) ->
-    D2 * C, before the Dense, exactly as flax reshapes it.
+    D2 * C, before the Dense, exactly as flax reshapes it;
+  - dropout (training mode only) sits where flax's does: after the
+    positional encoding of the encoder and of the decoder, on each
+    attention output and on the FFN output before its residual add, and on
+    the FFN's inner activation; attention weights get none;
+  - `reset_parameters(generator)` draws flax's default distributions
+    (models/flax_init.py).
 
-io/jax_params.py::transformer_asr_from_jax carries a flax parameter tree
-over. Inference only: training (and with it dropout, the joint-loss
-weight and label smoothing) is not ported, so the config has no fields
-for them; the compute type is float32 (bf16 raises NotImplementedError),
-and the conformer encoder and the KV-cached incremental decoder are not
-ported.
+io/jax_params.py carries a flax parameter tree over in both directions.
+The compute type is float32 (bf16 raises NotImplementedError); the
+conformer encoder and the KV-cached incremental decoder are not ported.
 """
 
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -39,6 +46,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from speech_recognition_tools_tpu_torch.device import configure_cuda, resolve_device
+from speech_recognition_tools_tpu_torch.models import flax_init
 
 
 @dataclass(frozen=True)
@@ -50,6 +58,9 @@ class TransformerASRConfig:
     eunits: int = 2048
     dlayers: int = 6
     dunits: int = 2048
+    dropout: float = 0.1
+    mtlalpha: float = 0.3  # CTC weight in the joint loss
+    lsm_weight: float = 0.1  # label smoothing of the attention loss
     encoder_type: str = "transformer"  # 'conformer' is not ported
     # chunked encoder self-attention: each frame attends within its chunk
     # of `attn_chunk` frames plus `attn_left_chunks` chunks of left context
@@ -175,13 +186,15 @@ class MHABlock(nn.Module):
         self.norm_ff = LayerNorm(D, device=device)
         self.ff_in = nn.Linear(D, ff_dim, device=device)
         self.ff_out = nn.Linear(ff_dim, D, device=device)
+        self.drop = nn.Dropout(cfg.dropout)
 
     def forward(self, x, self_mask, memory=None, memory_mask=None):
         h = self.norm_self(x)
-        x = x + self.self_attn(h, h, self_mask)
+        x = x + self.drop(self.self_attn(h, h, self_mask))
         if self.cross:
-            x = x + self.src_attn(self.norm_src(x), memory, memory_mask)
-        return x + self.ff_out(F.relu(self.ff_in(self.norm_ff(x))))
+            x = x + self.drop(self.src_attn(self.norm_src(x), memory, memory_mask))
+        h = self.drop(F.relu(self.ff_in(self.norm_ff(x))))
+        return x + self.drop(self.ff_out(h))
 
 
 def subsampled_length(lengths: torch.Tensor) -> torch.Tensor:
@@ -231,11 +244,12 @@ class TransformerEncoder(nn.Module):
         self.layers = nn.ModuleList(
             MHABlock(cfg, cfg.eunits, device=device) for _ in range(cfg.elayers))
         self.after_norm = LayerNorm(cfg.adim, device=device)
+        self.drop = nn.Dropout(cfg.dropout)
 
     def forward(self, feats, lengths):
         c = self.cfg
         h, out_len = self.embed(feats, lengths)
-        h = _embed_scale(h, c.adim)
+        h = self.drop(_embed_scale(h, c.adim))
         T2 = h.shape[1]
         mask = torch.arange(T2, device=h.device)[None, :] < out_len[:, None]
         self_mask = mask[:, None, None, :]
@@ -259,11 +273,12 @@ class TransformerDecoder(nn.Module):
             for _ in range(cfg.dlayers))
         self.after_norm = LayerNorm(cfg.adim, device=device)
         self.output = nn.Linear(cfg.adim, cfg.vocab_size, device=device)
+        self.drop = nn.Dropout(cfg.dropout)
 
     def forward(self, tokens, memory, memory_len):
         U = tokens.shape[1]
         dev = tokens.device
-        h = _embed_scale(self.embed(tokens.clamp_min(0)), self.cfg.adim)
+        h = self.drop(_embed_scale(self.embed(tokens.clamp_min(0)), self.cfg.adim))
         causal = torch.ones(U, U, dtype=torch.bool, device=dev).tril()
         self_mask = (tokens != -1)[:, None, None, :] & causal[None, None]
         mem_mask = (torch.arange(memory.shape[1], device=dev)[None, :]
@@ -296,6 +311,24 @@ class TransformerASR(nn.Module):
         self.encoder = TransformerEncoder(cfg, idim, device=dev)
         self.decoder = TransformerDecoder(cfg, device=dev)
         self.ctc_head = nn.Linear(cfg.adim, cfg.vocab_size, device=dev)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Draw every parameter from the distribution the JAX model's `init`
+        draws it from (flax's defaults), from `generator` (a CPU
+        torch.Generator), module by module in a fixed order."""
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                flax_init.dense_(m, generator)
+            elif isinstance(m, nn.Conv2d):
+                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                flax_init.lecun_normal_(m.weight, fan_in, generator)
+                flax_init.zeros_(m.bias)
+            elif isinstance(m, nn.Embedding):
+                flax_init.normal_(m.weight, 1.0 / math.sqrt(m.embedding_dim), generator)
+            elif isinstance(m, LayerNorm):
+                flax_init.ones_(m.weight)
+                flax_init.zeros_(m.bias)
 
     def forward(self, feats, lengths, tokens_in):
         memory, enc_len = self.encoder(feats, lengths)
@@ -304,15 +337,28 @@ class TransformerASR(nn.Module):
 
     def encode(self, feats, lengths):
         """(B, T, idim), (B,) -> memory (B, T2, adim), enc_len (B,),
-        ctc_logits (B, T2, vocab)."""
-        memory, enc_len = self.encoder(feats, lengths)
-        return memory, enc_len, self.ctc_head(memory)
+        ctc_logits (B, T2, vocab); without dropout in either mode, as the
+        JAX `encode` runs deterministically."""
+        with _eval_mode(self):
+            memory, enc_len = self.encoder(feats, lengths)
+            return memory, enc_len, self.ctc_head(memory)
 
     def decode_step(self, tokens, memory, enc_len):
-        """Full-prefix decoder pass: the scores for the next token are
-        logits[:, -1] (or at the last filled position of a -1-padded
-        buffer)."""
-        return self.decoder(tokens, memory, enc_len)
+        """Full-prefix decoder pass, without dropout: the scores for the
+        next token are logits[:, -1] (or at the last filled position of a
+        -1-padded buffer)."""
+        with _eval_mode(self):
+            return self.decoder(tokens, memory, enc_len)
+
+
+@contextmanager
+def _eval_mode(module: nn.Module):
+    was = module.training
+    module.eval()
+    try:
+        yield
+    finally:
+        module.train(was)
 
 
 def greedy_ctc(ctc_logits, enc_len, blank_id=0):
@@ -329,3 +375,115 @@ def greedy_ctc(ctc_logits, enc_len, blank_id=0):
             prev = i
         out.append(seq)
     return out
+
+
+# ------------------------------------------------------------------ training
+
+
+def ctc_loss(logits, logit_paddings, labels, label_paddings, blank_id=0,
+             log_epsilon=-1e5):
+    """Per-sequence CTC loss (B,), as optax.ctc_loss computes it.
+
+    logits (B, T, K); logit_paddings (B, T) and label_paddings (B, N) are 1.0
+    at padded positions (labels right-padded); labels (B, N) int. The
+    forward recursion is optax's: log-alphas of the blank and label states
+    start at `log_epsilon` (an approximation of log 0) instead of -inf, a
+    label repeated back to back must pass through a blank (the direct
+    transition costs log_epsilon), and padded frames carry the state over.
+    So a row whose labels cannot fit its frames gets a large finite loss
+    (~ -log_epsilon) with a finite gradient where torch's F.ctc_loss gives
+    inf. Autograd runs through the recursion: one set of small kernels per
+    frame.
+    """
+    B, T, K = logits.shape
+    N = labels.shape[1]
+    dt = logits.dtype
+    logprobs = torch.log_softmax(logits, -1)
+    labels = labels.long()
+    labellens = N - label_paddings.sum(1).long()
+    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).to(dt), (0, 1))
+    lp_phi = logprobs[:, :, blank_id : blank_id + 1].transpose(0, 1)  # (T, B, 1)
+    lp_emit = logprobs.gather(2, labels[:, None, :].expand(B, T, N)).transpose(0, 1)
+    pads = logit_paddings.to(dt).transpose(0, 1)[..., None]  # (T, B, 1)
+
+    phi = torch.full((B, N + 1), log_epsilon, dtype=dt, device=logits.device)
+    phi[:, 0] = 0.0
+    emit = torch.full((B, N), log_epsilon, dtype=dt, device=logits.device)
+
+    def update_phi(p, added):
+        return torch.cat([p[:, :1], torch.logaddexp(p[:, 1:], added)], dim=-1)
+
+    for t in range(T):
+        prev_phi = phi
+        phi_in = update_phi(phi, emit + log_epsilon * repeat)
+        next_emit = torch.logaddexp(phi_in[:, :-1] + lp_emit[t], emit + lp_emit[t])
+        next_phi = update_phi(phi_in + lp_phi[t],
+                              emit + lp_phi[t] + log_epsilon * (1.0 - repeat))
+        pad = pads[t]
+        emit = pad * emit + (1.0 - pad) * next_emit
+        phi = pad * prev_phi + (1.0 - pad) * next_phi
+    phi_last = update_phi(phi, emit)
+    return -phi_last.gather(1, labellens[:, None])[:, 0]
+
+
+def joint_loss(ctc_logits, dec_logits, enc_len, batch, cfg: TransformerASRConfig):
+    """mtlalpha * CTC / token length + (1 - mtlalpha) * label-smoothed CE
+    over the token_len + 1 positions (eos at token_len), as the JAX
+    `_joint_loss`. Label smoothing is lsm_weight * -mean(logp) over the
+    whole vocabulary, blank included. Returns (loss, {"ctc", "att"})."""
+    tokens, token_len = batch["tokens"], batch["token_lengths"]
+    U = tokens.shape[1]
+    dev = tokens.device
+    pos = torch.arange(U, device=dev)[None, :]
+    tok_padmask = (pos >= token_len[:, None]).float()
+    enc_padmask = (torch.arange(ctc_logits.shape[1], device=dev)[None, :]
+                   >= enc_len[:, None]).float()
+    ctc = ctc_loss(ctc_logits, enc_padmask, tokens.clamp_min(0), tok_padmask,
+                   blank_id=cfg.blank_id)
+    ctc = (ctc / token_len.clamp_min(1)).mean()
+    tgt = torch.where(pos == token_len[:, None], cfg.eos_id, tokens)
+    valid = (pos <= token_len[:, None]).float()
+    logp = torch.log_softmax(dec_logits, -1)
+    nll = -logp.gather(-1, tgt.clamp_min(0).long()[..., None])[..., 0]
+    smooth = -logp.mean(-1)
+    ce = (1 - cfg.lsm_weight) * nll + cfg.lsm_weight * smooth
+    att = (ce * valid).sum() / valid.sum().clamp_min(1)
+    loss = cfg.mtlalpha * ctc + (1 - cfg.mtlalpha) * att
+    return loss, {"ctc": ctc, "att": att}
+
+
+def decoder_inputs(tokens, token_len, sos_id):
+    """sos + tokens[:, :-1], with -1 past position token_len (the decoder's
+    padding)."""
+    B, U = tokens.shape
+    sos = torch.full((B, 1), sos_id, dtype=tokens.dtype, device=tokens.device)
+    tokens_in = torch.cat([sos, tokens[:, :-1]], dim=1)
+    pos = torch.arange(U, device=tokens.device)[None, :]
+    return torch.where(pos <= token_len[:, None], tokens_in, -1)
+
+
+def asr_loss(model: TransformerASR, batch, cfg: TransformerASRConfig, train=True):
+    """The joint loss of one batch (feats, lengths, tokens, token_lengths);
+    dropout is on when `train` (the module is put in that mode)."""
+    model.train(train)
+    tokens_in = decoder_inputs(batch["tokens"], batch["token_lengths"], cfg.sos_id)
+    ctc_logits, dec_logits, enc_len = model(batch["feats"], batch["lengths"], tokens_in)
+    return joint_loss(ctc_logits, dec_logits, enc_len, batch, cfg)
+
+
+def noam_schedule(adim, warmup=25000, factor=10.0):
+    """ESPnet noam: factor * adim^-0.5 * min(step^-0.5, step*warmup^-1.5),
+    with step clamped to >= 1 (a Python function of the step count)."""
+
+    def sched(step):
+        step = max(int(step), 1)
+        return factor * adim**-0.5 * min(step**-0.5, step * warmup**-1.5)
+
+    return sched
+
+
+def average_checkpoints(param_list):
+    """Average dicts of tensors key by key (run_fdlp_e1.sh:495-505
+    average_checkpoints equivalent)."""
+    n = len(param_list)
+    return {k: sum(p[k] for p in param_list) / n for k in param_list[0]}

@@ -67,8 +67,8 @@ def _port_modules():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port loads no jax, flax, optax or JAX
-    package module (a subprocess, since conftest has already imported
+    """Importing every module of the port loads no jax, flax, optax,
+    msgpack or JAX package module (a subprocess, since conftest has already imported
     jax; modules loaded before the imports, e.g. by site hooks, are not
     the port's doing)."""
     code = (
@@ -77,7 +77,7 @@ def test_port_imports_no_jax():
         f"for m in {_port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'speech_recognition_tools_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'speech_recognition_tools_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -90,7 +90,7 @@ def test_port_sources_import_nothing_of_jax():
     files = [os.path.join(r, f) for r, _, fs in os.walk(PORT)
              for f in fs if f.endswith(".py")]
     files.append(os.path.join(REPO, "chip_smoke.py"))
-    banned = ("jax", "jaxlib", "flax", "optax")
+    banned = ("jax", "jaxlib", "flax", "optax", "msgpack")
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
