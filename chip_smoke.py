@@ -70,17 +70,39 @@ exits non-zero. Phases:
      timed); ms a step split into encoder, decoder, CTC loss, the rest of
      the loss, backward and optimizer, peak memory, a profile and audio
      seconds trained per wall second;
-  8. one JSON line describing every kernel of the port (`launches` is the
+  8. online serving at wsj_fdlp_e2e width with attn_chunk 16 / left 4 (the
+     recipes' streaming setting): a model directory written by
+     save_checkpoint (seeded weights, vocab.json, serving.json with phase
+     3's front-end, global CMVN of phase 3's features) and a 1 x 1000 RNNLM;
+     cli.serve.make_server(max_streams 8, defer 30 ms) on a local socket;
+     8 concurrent clients each stream one of phase 3's utterances in 0.25 s
+     pcm messages, unpaced, then eof, and one more runs with endpointing
+     ({"config": {"endpoint_blanks": N}}); K1's launches are counted over
+     these streams. Each final is held to OnlineASRPipeline on the same
+     audio (a mismatch only at a CTC near-tie, top two within 1e-4);
+     StreamingFdlp's features against fdlp_spectrogram_batch
+     (SERVE_FEAT_TOL); the streamed encoder memory against the offline
+     chunked encode (atol 1e-4); K1 against its plain version on the
+     streamer's own lags (one window: 80 rows; a block of 8: 640 rows);
+     cli.transcribe on two wavs against the pipeline; cli.recog_e2e
+     --jit_decode against --streaming (beam, the RNNLM, max_len 50) on 4
+     utterances. Prints encoder ms a round (device and wall), featgen ms a
+     push, partial and final latencies, audio s per wall s, K1 at the
+     serving shapes and a profile of ten rounds;
+  9. one JSON line describing every kernel of the port (`launches` is the
      hybrid main path's count, `launches_by_path` each path's);
-  9. last line: {"ok": true, "device": {...}}.
+  10. last line: {"ok": true, "device": {...}}.
 """
 
 import argparse
 import json
+import os
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -118,6 +140,23 @@ E2E_TRAIN = dict(mtlalpha=0.3, lsm_weight=0.1, dropout=0.1, warmup_steps=25000,
                  transformer_lr=10.0, grad_clip=5.0, batch_size=32, epochs=2,
                  average_last=2)
 E2E_TRAIN_DECODE_LEN = 50  # max_len of the final_avg checkpoint's one search
+
+# online serving (phase 8): the recipes' streaming setting
+# (recipes/streaming_migration_ab.sh:37,48), srt-serve's defaults
+# (--max_streams 8, --defer_ms 30) and serve_client's 0.25 s messages; the
+# CTC head's blank logit is raised by SERVE_BLANK_BIAS so that, as in a
+# trained CTC model, most frames are blank and pauses endpoint; a
+# greedy-CTC mismatch is allowed only at a frame whose top two logits are
+# within SERVE_NEAR_TIE
+SERVE_CHUNK = dict(attn_chunk=16, attn_left_chunks=4)
+SERVE_STREAMS = 8
+SERVE_DEFER_S = 0.03
+SERVE_PUSH_S = 0.25
+SERVE_BLANK_BIAS = 2.0
+SERVE_NEAR_TIE = 1e-4
+SERVE_FEAT_TOL = dict(rtol=1e-3, atol=2e-3)  # phase 3's limits
+SERVE_MEM_ATOL = 1e-4
+SERVE_RECOG_UTTS, SERVE_RECOG_MAX_LEN = 4, 50
 
 # (order, coeff_num) of the front-ends in recipes/configs: wsj/chime4/
 # conformer e2e, timit_hybrid, reverb
@@ -184,7 +223,9 @@ def wall_s(fn, repeats=3):
 
 def device_breakdown(tag, fn, top=8):
     """One profiled call of fn(): device busy share of the wall time and the
-    kernels that took the most device time (torch.profiler / CUPTI)."""
+    kernels that took the most device time (torch.profiler / CUPTI).
+    Returns (wall us, device busy us, device activities), or None when the
+    profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -209,12 +250,13 @@ def device_breakdown(tag, fn, top=8):
     busy = sum(r[0] for r in rows)
     if not rows:
         log(f"[profile] {tag}: the profiler saw no device time (not measured)")
-        return
+        return None
     log(f"[profile] {tag}: wall {wall_us / 1e3:.2f} ms (profiled), device busy "
         f"{busy / 1e3:.2f} ms = {100 * busy / wall_us:.1f}%, {sum(r[1] for r in rows)} "
         f"device activities")
     for us, count, name in sorted(rows, reverse=True)[:top]:
         log(f"[profile]   {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% x{count:<6d} {name[:90]}")
+    return wall_us, busy, sum(r[1] for r in rows)
 
 
 def k1_work(P, order, lim):
@@ -873,6 +915,330 @@ def e2e_train_phase(x, lens, fdlp_cfg, rng, dev, tmp):
     return launches
 
 
+def _ctc_near_ties(rows):
+    """Frames of (T, V) CTC logits whose top two are within SERVE_NEAR_TIE."""
+    top2 = np.sort(np.asarray(rows), axis=-1)[:, -2:]
+    return int((top2[:, 1] - top2[:, 0] < SERVE_NEAR_TIE).sum())
+
+
+def _serve_client(port, sig, step, endpoint_blanks=0):
+    """One socket stream of `sig` in messages of `step` samples, unpaced:
+    per-message send-to-reply seconds, the endpoints' tokens, the final
+    and its latency after eof."""
+    s = socket.create_connection(("127.0.0.1", port), timeout=600)
+    f = s.makefile("rwb")
+
+    def ask(obj):
+        t0 = time.perf_counter()
+        f.write((json.dumps(obj) + "\n").encode())
+        f.flush()
+        msg = json.loads(f.readline())
+        assert "error" not in msg, msg
+        return msg, time.perf_counter() - t0
+
+    try:
+        if endpoint_blanks:
+            assert ask({"config": {"endpoint_blanks": endpoint_blanks}})[0] == {"ok": True}
+        lat, endpoints = [], []
+        for off in range(0, len(sig), step):
+            msg, dt = ask({"pcm": sig[off : off + step].tolist()})
+            lat.append(dt)
+            if "endpoint" in msg:
+                endpoints.append(msg["endpoint"]["tokens"])
+        final, t_final = ask({"eof": True})
+    finally:
+        s.close()
+    return dict(lat=lat, endpoints=endpoints, final=final, t_final=t_final,
+                t_end=time.perf_counter())
+
+
+def _pipeline_run(pipe, sig, step):
+    """(final tokens, CTC rows) of OnlineASRPipeline on `sig` pushed in
+    messages of `step` samples."""
+    pipe.reset()
+    for off in range(0, len(sig), step):
+        pipe.push(sig[off : off + step])
+    return pipe.finish(), pipe.recognizer.ctc_logits
+
+
+def serve_phase(x, lens, fdlp_cfg, feats, nfr, rng, dev, tmp):
+    """Online serving at wsj_fdlp_e2e width with the recipes' streaming
+    setting (attn_chunk 16, 4 left chunks): srt-serve's make_server on a
+    model directory with serving.json and global CMVN, 8 concurrent socket
+    streams of phase 3's utterances and one endpointing stream; then
+    cli.transcribe and cli.recog_e2e on the same directory. `feats`, `nfr`
+    are phase 3's batch features (K1). Returns K1's launches over the
+    served streams and over the transcribe CLI."""
+    import string
+
+    t_phase = time.perf_counter()
+    from scipy.io.wavfile import write as wav_write
+
+    from speech_recognition_tools_tpu_torch.cli import recog_e2e, serve, transcribe
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import beam_search_encoded
+    from speech_recognition_tools_tpu_torch.dsp.fdlp import window_lags
+    from speech_recognition_tools_tpu_torch.dsp.streaming import StreamingFdlp
+    from speech_recognition_tools_tpu_torch.infer.streaming_asr import (
+        OnlineASRPipeline,
+        StreamBatcher,
+        StreamingRecognizer,
+        _posenc_rows,
+    )
+    from speech_recognition_tools_tpu_torch.io.egs import build_egs
+    from speech_recognition_tools_tpu_torch.io.text import build_char_vocab, save_vocab
+    from speech_recognition_tools_tpu_torch.models.transformer_asr import TransformerASRConfig
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import (
+        lpc_cepstra,
+        lpc_cepstra_reference,
+    )
+    from speech_recognition_tools_tpu_torch.train.checkpoint import save_checkpoint
+    from speech_recognition_tools_tpu_torch.utils.cmvn import cmvn_stats_masked
+
+    # ---- the model directory, as train_e2e and run_corpus write it ----
+    cfg = TransformerASRConfig(**E2E_AM, **SERVE_CHUNK)
+    V, idim = cfg.vocab_size, fdlp_cfg.nfilters
+    params = random_asr_params(rng, cfg, idim)
+    params["params"]["ctc_head"]["bias"][cfg.blank_id] += SERVE_BLANK_BIAS
+    model_dir, lm_dir = os.path.join(tmp, "serve_am"), os.path.join(tmp, "serve_lm")
+    hyper = dict(model_class="TransformerASR", **E2E_AM, **SERVE_CHUNK, mtlalpha=0.3,
+                 lsm_weight=0.1, encoder_type="transformer", feature_dim=idim)
+    save_checkpoint(model_dir, "final_avg", params, hyper)
+    vocab = build_char_vocab([string.ascii_letters[: V - 4]])
+    assert len(vocab) == V
+    save_vocab(vocab, os.path.join(model_dir, "vocab.json"))
+    mean, std = (t.cpu().numpy() for t in cmvn_stats_masked(feats, nfr))
+    np.savez(os.path.join(model_dir, "cmvn.npz"), mean=mean, std=std)
+    frontend = {k: getattr(fdlp_cfg, k) for k in ("srate", "nfilters", "coeff_num",
+                                                  "coeff_range", "order", "fduration")}
+    with open(os.path.join(model_dir, "serving.json"), "w") as fh:
+        json.dump({"frontend": {"type": "fdlp", **frontend}, "cmvn": "cmvn.npz",
+                   "cmvn_mode": "global"}, fh)
+    save_checkpoint(lm_dir, "final", random_rnnlm_params(rng, V, cfg.adim, E2E_LM_HIDDEN),
+                    dict(vocab_size=V, embed_dim=cfg.adim, hidden=E2E_LM_HIDDEN, layers=1,
+                         cell="gru"))
+
+    S = SERVE_STREAMS
+    step = int(SERVE_PUSH_S * fdlp_cfg.srate)
+    sigs = [x[b, : int(lens[b])] for b in range(S + 2)]
+    ep_sig = np.concatenate(sigs[S:])  # the endpointing stream: two utterances
+    pipe = OnlineASRPipeline.from_model_dir(model_dir, device=dev)
+    assert pipe.fdlp_cfg == fdlp_cfg and np.array_equal(pipe.cmvn_mean, mean)
+    # the endpointing stream's threshold: the largest that splits its audio
+    # into >= 2 utterances on the pipeline
+    R, want_segments = None, None
+    for cand in (8, 6, 4, 3, 2, 1):
+        ep = OnlineASRPipeline.from_model_dir(model_dir, device=dev, endpoint_blanks=cand)
+        _pipeline_run(ep, ep_sig, step)
+        if len(ep.segments) >= 2:
+            R, want_segments = cand, ep.segments
+            break
+    assert R is not None, "no endpoint threshold splits the endpointing stream"
+
+    # ---- the main path: 8 concurrent streams and one endpointing stream ----
+    server, port = serve.make_server(model_dir, max_streams=S, defer_s=SERVE_DEFER_S,
+                                     device=dev)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        results = [None] * S
+
+        def run(i):
+            results[i] = _serve_client(port, sigs[i], step)
+
+        lpc_cepstra.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(S)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        t_served = max(r["t_end"] for r in results) - t0
+        ep_run = _serve_client(port, ep_sig, step, endpoint_blanks=R)
+        torch.cuda.synchronize()
+        serve_launches = lpc_cepstra.launches
+        rounds = server.service.batcher.rounds
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert serve_launches > 0, "the serving path did not launch K1"
+    assert ep_run["endpoints"], "no endpoint fired mid-stream"
+    got_segments = ep_run["endpoints"] + ([ep_run["final"]["tokens"]]
+                                          if ep_run["final"]["tokens"] else [])
+    assert got_segments == want_segments, (got_segments, want_segments)
+
+    # each final against the pipeline on the same audio and messages
+    mismatched = near_frames = 0
+    for sig, res in zip(sigs[:S], results):
+        want, rows = _pipeline_run(pipe, sig, step)
+        fin = res["final"]
+        assert fin["frames"] == rows.shape[0] and np.isfinite(rows).all()
+        assert len(fin["times"]) == len(fin["tokens"]) == len(fin["confs"])
+        if fin["tokens"] != want:
+            mismatched += 1
+            near_frames += _ctc_near_ties(rows)
+            assert _ctc_near_ties(rows) > 0, (fin["tokens"], want)
+
+    # streamed features (StreamingFdlp, K1) against the batch path's
+    feat_err, feat_need, stream_feats, push_ms = 0.0, 0.0, [], []
+    for b, sig in enumerate(sigs[:S]):
+        sf = StreamingFdlp(fdlp_cfg, device=dev)
+        outs = []
+        for off in range(0, len(sig), step):
+            t1 = time.perf_counter()
+            outs.append(sf.process(sig[off : off + step]))
+            push_ms.append(1e3 * (time.perf_counter() - t1))
+        outs.append(sf.finish())
+        got = np.concatenate(outs)
+        ref = feats[b, : int(nfr[b])].cpu().numpy()
+        assert got.shape == ref.shape and np.isfinite(got).all()
+        feat_err = max(feat_err, float(np.abs(got - ref).max()))
+        feat_need = max(feat_need, float((np.abs(got - ref) / (1 + np.abs(ref))).max()))
+        assert np.allclose(got, ref, **SERVE_FEAT_TOL), (b, feat_err)
+        stream_feats.append((got - mean) / std)
+
+    # the streamed encoder memory against the offline chunked encode
+    model, _, _ = recog_e2e._load(model_dir, "final_avg", device=dev)
+    mem_err = 0.0
+    for f in stream_feats[:2]:
+        sr = StreamingRecognizer(model)
+        for off in range(0, f.shape[0], 25):
+            sr.push(f[off : off + 25])
+        sr.finish()
+        with torch.no_grad():
+            m, n, _ = model.encode(torch.as_tensor(f[None], device=dev),
+                                   torch.tensor([f.shape[0]], device=dev))
+        assert sr.enc_len == int(n[0])
+        mem_err = max(mem_err, float(np.abs(sr.memory - m[0, : sr.enc_len].cpu().numpy()).max()))
+    assert mem_err <= SERVE_MEM_ATOL, mem_err
+
+    # K1 on the streamer's own lags: one window (a 0.25 s push readies at
+    # most one) and a block of 8 (a long push)
+    sf = StreamingFdlp(fdlp_cfg, device=dev)
+    sf.process(sigs[0])
+    k1 = []
+    for F in (1, 8):
+        r = window_lags(sf.block_windows(range(F)), fdlp_cfg, device=dev)
+        r = r.reshape(-1, r.shape[-1])
+        P, order, lim = r.shape[0], fdlp_cfg.order, fdlp_cfg.coeff_num
+        got = lpc_cepstra(r, order, lim)
+        ref = lpc_cepstra_reference(r, order, lim)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        err, t_need, rel = cep_agreement(f"serving lags P={P}", got, ref)
+        assert t_need <= MAIN_PATH_TOL and rel <= MAIN_PATH_REL, (t_need, rel)
+        ms = graph_ms(lambda: lpc_cepstra(r, order, lim))
+        plain = cuda_ms(lambda: lpc_cepstra_reference(r, order, lim), reps=2, repeats=3)
+        bound, by = k1_bound_ms(P, order, lim)
+        k1.append(dict(P=P, err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by))
+        log(f"[serve-k1] P={P} order={order} lim={lim}: max|kernel - plain|={err:.3e} "
+            f"kernel_ms={ms:.4f} plain_ms={plain:.3f} bound_ms={bound:.5f} ({by}) "
+            f"share_of_bound={bound / ms:.4f}")
+
+    # the transcribe CLI on two wavs against the pipeline
+    wavs = []
+    for b in range(2):
+        wavs.append(os.path.join(tmp, f"serve_utt{b}.wav"))
+        wav_write(wavs[-1], fdlp_cfg.srate, sigs[b])
+    out = os.path.join(tmp, "serve_transcribe.txt")
+    lpc_cepstra.launches = 0
+    transcribe.main([model_dir, *wavs, "--out", out, "--device", str(dev)])
+    transcribe_launches = lpc_cepstra.launches
+    assert transcribe_launches > 0, "the transcribe CLI did not launch K1"
+    with open(out) as fh:
+        lines = fh.read().splitlines()
+    for b, line in enumerate(lines):
+        want, rows = _pipeline_run(pipe, sigs[b], len(sigs[b]))
+        text = pipe.recognizer.text(want).strip()
+        assert line == f"serve_utt{b} {text}".rstrip() or _ctc_near_ties(rows) > 0, (line, text)
+    assert len(lines) == 2
+
+    # recog_e2e: --jit_decode against --streaming (beam), RNNLM fused
+    egs = os.path.join(tmp, "serve_egs")
+    build_egs(((f"utt{b}", feats[b, : int(nfr[b])].cpu().numpy())
+               for b in range(SERVE_RECOG_UTTS)), egs, cmvn=(mean, std))
+    common = ["--lm_dir", lm_dir, "--max_len", str(SERVE_RECOG_MAX_LEN), "--device", str(dev)]
+    t_jit, hyp_jit = _synced(lambda: recog_e2e.main(
+        [model_dir, egs, os.path.join(tmp, "hyp_jit"), "--jit_decode", "--batch_size",
+         str(SERVE_RECOG_UTTS), *common]))
+    t_str, hyp_str = _synced(lambda: recog_e2e.main(
+        [model_dir, egs, os.path.join(tmp, "hyp_stream"), "--streaming", "--streaming_final",
+         "beam", *common]))
+    assert sorted(hyp_jit) == sorted(hyp_str) and len(hyp_jit) == SERVE_RECOG_UTTS
+    lm = recog_e2e._load_lm(lm_dir, device=dev)
+    recog_gaps = []
+    for key in sorted(hyp_jit):
+        if hyp_jit[key] == hyp_str[key]:
+            continue
+        b = int(key[3:])
+        f = torch.as_tensor((feats[b, : int(nfr[b])].cpu().numpy() - mean) / std, device=dev)
+        with torch.no_grad():
+            m, n, c = model.encode(f[None], torch.tensor([f.shape[0]], device=dev))
+        sr = StreamingRecognizer(model)
+        sr.push(f.cpu().numpy())
+        sr.finish()
+        kw = dict(lm=lm, max_len=SERVE_RECOG_MAX_LEN, **E2E_BEAM)
+        _, s_off = beam_search_encoded(model, m, n, c, **kw)
+        _, s_str = beam_search_encoded(
+            model, torch.as_tensor(sr.memory[None], device=dev), n,
+            torch.as_tensor(sr.ctc_logits[None], device=dev), **kw)
+        a, z = s_off.max().item(), s_str.max().item()
+        recog_gaps.append(abs(a - z) / abs(a))
+    assert all(g < 1e-4 for g in recog_gaps), recog_gaps
+
+    # timing: the batched step at 8 full rows, featgen pushes, a profile
+    sb = StreamBatcher(model, max_streams=S)
+    chunk = cfg.attn_chunk
+    xs = torch.as_tensor(rng.standard_normal((S, 4 * chunk + 3, idim)).astype(np.float32),
+                         device=dev)
+    pe = torch.as_tensor(np.stack([_posenc_rows(64, chunk, cfg.adim)] * S), device=dev)
+    nv = torch.full((S,), chunk, device=dev)
+    up = torch.ones((S,), dtype=torch.bool, device=dev)
+
+    def round_():
+        _, ctc, sb.caches = sb.step(xs, pe, nv, up, sb.caches)
+        return ctc.cpu()
+
+    t_round, _ = wall_s(lambda: [round_() for _ in range(10)])
+    prof = device_breakdown("serve encoder, 10 batched rounds of 8 streams",
+                            lambda: [round_() for _ in range(10)])
+    lat = [v for r in results for v in r["lat"]]
+    fin = [r["t_final"] for r in results]
+    audio_s = float(sum(len(s_) for s_ in sigs[:S])) / fdlp_cfg.srate
+    busy = "not measured" if prof is None else (
+        f"{prof[1] / 10 / 1e3:.3f} ms device busy a round ({100 * prof[1] / prof[0]:.1f}% of "
+        f"the profiled wall), {prof[2] / 10:.0f} device activities a round")
+    log(f"[serve] wsj_fdlp_e2e {cfg.elayers}/{cfg.dlayers} layers adim {cfg.adim}, attn_chunk "
+        f"{chunk} left {cfg.attn_left_chunks}; make_server(max_streams {S}, defer "
+        f"{1e3 * SERVE_DEFER_S:.0f} ms): {S} concurrent streams of {audio_s:.1f} s audio in "
+        f"{SERVE_PUSH_S} s messages, unpaced: {t_served:.2f} s wall = {audio_s / t_served:.1f} "
+        f"audio s per wall s, {rounds} batched rounds (all streams, endpointing included); K1 "
+        f"launches {serve_launches}")
+    log(f"[serve] partial latency per message: median {1e3 * statistics.median(lat):.2f} ms, "
+        f"p90 {1e3 * float(np.percentile(lat, 90)):.2f} ms over {len(lat)} messages; final "
+        f"latency after eof: median {1e3 * statistics.median(fin):.2f} ms, max "
+        f"{1e3 * max(fin):.2f} ms")
+    log(f"[serve] encoder step at {S} full rows: {1e3 * t_round / 10:.3f} ms a round wall "
+        f"(synchronised, host included); {busy}")
+    log(f"[serve] featgen (StreamingFdlp, K1) per {SERVE_PUSH_S} s push: mean "
+        f"{statistics.mean(push_ms):.3f} ms, median {statistics.median(push_ms):.3f} ms, max "
+        f"{max(push_ms):.3f} ms over {len(push_ms)} pushes")
+    log(f"[serve] finals vs OnlineASRPipeline on the card: {S - mismatched} of {S} "
+        f"token-identical, {mismatched} differ, {near_frames} near-tie frames (top two within "
+        f"{SERVE_NEAR_TIE}) in those; endpointing stream (endpoint_blanks {R}): "
+        f"{len(ep_run['endpoints'])} mid-stream endpoints, segments equal the pipeline's")
+    log(f"[serve] streamed vs batch features max|err| {feat_err:.3e}, allclose needs "
+        f"rtol=atol >= {feat_need:.3e} (limit rtol {SERVE_FEAT_TOL['rtol']}, atol "
+        f"{SERVE_FEAT_TOL['atol']}); "
+        f"streamed vs offline chunked encoder memory max|err| {mem_err:.3e} (atol "
+        f"{SERVE_MEM_ATOL}); transcribe CLI texts equal the pipeline's (K1 launches "
+        f"{transcribe_launches})")
+    log(f"[serve] recog_e2e, {SERVE_RECOG_UTTS} utterances, RNNLM, max_len "
+        f"{SERVE_RECOG_MAX_LEN}: --jit_decode --batch_size {SERVE_RECOG_UTTS} {t_jit:.2f} s, "
+        f"--streaming (beam) {t_str:.2f} s; {len(recog_gaps)} hypotheses differ, best-score "
+        f"gaps {[f'{g:.2e}' for g in recog_gaps]}; phase 8 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return serve_launches, transcribe_launches, k1
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1110,12 +1476,14 @@ def main():
     # ---- 5. the e2e slice at wsj_fdlp_e2e ----
     e2e_launches = e2e_phase(x, lens, e2e, rng, dev)
 
-    # ---- 6-7. the training paths ----
+    # ---- 6-7. the training paths; 8. online serving ----
     with tempfile.TemporaryDirectory() as tmp:
         hybrid_train_launches = hybrid_train_phase(xh, lh, rng, dev, tmp)
         e2e_train_launches = e2e_train_phase(x, lens, e2e, rng, dev, tmp)
+        serve_launches, transcribe_launches, _ = serve_phase(x, lens, e2e, fa, na, rng, dev,
+                                                             tmp)
 
-    # ---- 8. every kernel of the port ----
+    # ---- 9. every kernel of the port ----
     log(json.dumps({"kernels": [{
         "name": "lpc_cepstra",
         "route": "cuda",
@@ -1124,7 +1492,8 @@ def main():
         "launches": main_launches,
         "launches_by_path": {"featgen": featgen_launches, "hybrid": main_launches,
                              "e2e": e2e_launches, "hybrid_train": hybrid_train_launches,
-                             "e2e_train": e2e_train_launches},
+                             "e2e_train": e2e_train_launches, "serve": serve_launches,
+                             "transcribe": transcribe_launches},
         "max_abs_err": main_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -1134,7 +1503,7 @@ def main():
         "library_ms": None,
     }]}))
 
-    # ---- 9. contract line ----
+    # ---- 10. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -154,14 +154,8 @@ def _lpc_cepstra(r, order, coeff_num, backend="auto"):
     return cep.reshape(P, nb, coeff_num)
 
 
-def fdlp_lags(signals, num_samples, cfg: FdlpConfig = FdlpConfig(), *,
-              dtype: torch.dtype = torch.float32, device="cuda"):
-    """The per-(utterance x frame x band) autocorrelation lags that the LPC
-    stage of fdlp_spectrogram_batch solves, with the f32 ridge applied.
-
-    Returns (lags (B * max_frames, nfilters, order + 2), num_frames (B,)).
-    On CUDA it switches TF32 off process-wide (device.configure_cuda).
-    """
+def _setup(cfg: FdlpConfig, dtype: torch.dtype, device):
+    """(device, host constants, device constants) for a run of `cfg`."""
     if cfg.precision != "fast":
         raise NotImplementedError(
             f"FdlpConfig(precision={cfg.precision!r}) is not yet ported"
@@ -173,26 +167,71 @@ def fdlp_lags(signals, num_samples, cfg: FdlpConfig = FdlpConfig(), *,
     if not banded_supports_separable(c["fbank"], cfg.order + 2):
         raise ValueError("a filterbank band wraps the spectrum ends; "
                          "banded_autocorr would drop its circular wrap terms")
-    k = _device_constants(cfg, dtype, dev)
-    fp = c["fp"]
-    signals = torch.as_tensor(signals).to(device=dev, dtype=dtype)
-    num_samples = torch.as_tensor(num_samples).to(device=dev, dtype=torch.int64)
-    B, max_samples = signals.shape
-    max_frames = frame_count(max_samples, fp)
+    return dev, c, _device_constants(cfg, dtype, dev)
 
-    ones = torch.ones(fp.flength_samples, dtype=dtype, device=dev)
-    frames, num_frames = frame_signal(signals, num_samples, fp, ones, max_frames)
-    frames = frames * k["win"]
-    scale = 1.0 / np.sqrt(2 * int(cfg.srate * cfg.fduration))
-    cos_dct = (dct2(frames) * scale).reshape(B * max_frames, -1)
+
+def _window_lags(windows, cfg: FdlpConfig, k):
+    """(P, flen) raw analysis windows -> (P, nb, order+2) lags: window,
+    DCT-II / sqrt(2 srate fduration), banded autocorrelation, and in
+    float32 the white-noise ridge."""
+    cos_dct = dct2(windows * k["win"]) * (1.0 / np.sqrt(2 * int(cfg.srate * cfg.fduration)))
     r = banded_autocorr(cos_dct, k["fbank"], cfg.order + 2)
-    if dtype == torch.float32:
+    if r.dtype == torch.float32:
         # f32 only: a tiny diagonal loading bounds the LPC pole radii on
         # near-periodic audio, whose order-150 predictors otherwise carry
         # coefficients f32 cannot cancel (NaN cepstra); 1e-4 is the value
         # validated on the JAX fast path
         r[..., 0] *= 1.0 + 1e-4
-    return r, num_frames
+    return r
+
+
+def window_envelopes(windows, cfg: FdlpConfig, k):
+    """(P, flen) raw analysis windows -> (P, nb, kk) Hilbert envelopes:
+    the lags, LPC cepstra (K1 on a CUDA float32 batch), the cepstral
+    weights, exp(cepstra @ cos-DFT) with the exponent capped, and the
+    envelope window. The batch path and dsp/streaming.py's streamer both
+    run every analysis window through this one function. `k` is
+    _device_constants(cfg, windows.dtype, windows.device)."""
+    r = _window_lags(windows, cfg, k)
+    ceps = _lpc_cepstra(r, cfg.order, cfg.coeff_num, backend=cfg.lpc_backend)
+    log_env = torch.einsum("pbc,ck->pbk", ceps * k["weights"], k["cosmat"])
+    # a pole on a band harmonic can push the log-envelope past exp's range;
+    # saturate so exp(.) summed over the OLA stays finite
+    env_cap = 700.0 if windows.dtype == torch.float64 else 75.0
+    return torch.exp(torch.clamp(log_env, max=env_cap)) * k["env_win"]
+
+
+def _frames(signals, num_samples, fp, dtype, dev):
+    """Raw (unwindowed) analysis windows of a zero-padded batch:
+    (frames (B * max_frames, flen), num_frames (B,))."""
+    signals = torch.as_tensor(signals).to(device=dev, dtype=dtype)
+    num_samples = torch.as_tensor(num_samples).to(device=dev, dtype=torch.int64)
+    max_frames = frame_count(signals.shape[1], fp)
+    ones = torch.ones(fp.flength_samples, dtype=dtype, device=dev)
+    frames, num_frames = frame_signal(signals, num_samples, fp, ones, max_frames)
+    return frames.reshape(-1, fp.flength_samples), num_frames
+
+
+def fdlp_lags(signals, num_samples, cfg: FdlpConfig = FdlpConfig(), *,
+              dtype: torch.dtype = torch.float32, device="cuda"):
+    """The per-(utterance x frame x band) autocorrelation lags that the LPC
+    stage of fdlp_spectrogram_batch solves, with the f32 ridge applied.
+
+    Returns (lags (B * max_frames, nfilters, order + 2), num_frames (B,)).
+    On CUDA it switches TF32 off process-wide (device.configure_cuda).
+    """
+    dev, c, k = _setup(cfg, dtype, device)
+    frames, num_frames = _frames(signals, num_samples, c["fp"], dtype, dev)
+    return _window_lags(frames, cfg, k), num_frames
+
+
+def window_lags(windows, cfg: FdlpConfig = FdlpConfig(), *,
+                dtype: torch.dtype = torch.float32, device="cuda"):
+    """The lags that window_envelopes solves for (P, flen) raw analysis
+    windows (numpy or tensor), e.g. one block of dsp/streaming.py's
+    streamer: (P, nfilters, order + 2)."""
+    dev, _, k = _setup(cfg, dtype, device)
+    return _window_lags(torch.as_tensor(windows).to(device=dev, dtype=dtype), cfg, k)
 
 
 def fdlp_spectrogram_batch(
@@ -222,24 +261,13 @@ def fdlp_spectrogram_batch(
         utterance's length are garbage; mask with num_out_frames).
       num_out_frames: (B,) int64 true output frame counts.
     """
-    r, num_frames = fdlp_lags(signals, num_samples, cfg, dtype=dtype,
-                              device=device)
-    dev = r.device
-    c = _host_constants(cfg)
-    k = _device_constants(cfg, dtype, dev)
+    dev, c, k = _setup(cfg, dtype, device)
+    frames, num_frames = _frames(signals, num_samples, c["fp"], dtype, dev)
     num_samples = torch.as_tensor(num_samples).to(device=dev, dtype=torch.int64)
     B = num_samples.shape[0]
     max_samples = signals.shape[1]
-    max_frames = r.shape[0] // B
-    nb = r.shape[1]
-    ceps = _lpc_cepstra(r, cfg.order, cfg.coeff_num, backend=cfg.lpc_backend)
-    ceps = ceps * k["weights"]
-    log_env = torch.einsum("pbc,ck->pbk", ceps, k["cosmat"])
-    # a pole on a band harmonic can push the log-envelope past exp's range;
-    # saturate so exp(.) summed over the OLA stays finite
-    env_cap = 700.0 if dtype == torch.float64 else 75.0
-    env = torch.exp(torch.clamp(log_env, max=env_cap)) * k["env_win"]
-    env = env.reshape(B, max_frames, nb, c["kk"])
+    max_frames = frames.shape[0] // B
+    env = window_envelopes(frames, cfg, k).reshape(B, max_frames, -1, c["kk"])
 
     out_len = -torch.div(-num_samples * cfg.frate, cfg.srate, rounding_mode="floor")
     max_out = -(-max_samples * cfg.frate // cfg.srate)

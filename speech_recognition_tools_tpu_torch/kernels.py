@@ -23,6 +23,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "lpc_cepstra.cu")
@@ -33,6 +34,7 @@ COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "
 LINK_FLAGS = (*ARCH, "-shared")
 
 _lib: ctypes.CDLL | None = None
+_load_lock = threading.Lock()  # one build, even when threads race to first use
 
 
 @functools.lru_cache(maxsize=1)
@@ -152,12 +154,17 @@ def build() -> str:
 def load() -> ctypes.CDLL:
     """The kernel's shared library, built first if needed."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        lib.lpc_cepstra_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                        *[ctypes.c_int] * 8, ctypes.c_void_p]
-        lib.lpc_cepstra_f32.restype = ctypes.c_int
-        lib.lpc_cepstra_error_string.argtypes = [ctypes.c_int]
-        lib.lpc_cepstra_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    with _load_lock:
+        if _lib is None:
+            _lib = _open(build())
     return _lib
+
+
+def _open(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    lib.lpc_cepstra_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    *[ctypes.c_int] * 8, ctypes.c_void_p]
+    lib.lpc_cepstra_f32.restype = ctypes.c_int
+    lib.lpc_cepstra_error_string.argtypes = [ctypes.c_int]
+    lib.lpc_cepstra_error_string.restype = ctypes.c_char_p
+    return lib

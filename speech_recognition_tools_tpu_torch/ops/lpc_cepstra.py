@@ -31,6 +31,7 @@ covers raises.
 """
 
 import math
+import threading
 
 import torch
 
@@ -41,6 +42,7 @@ from speech_recognition_tools_tpu_torch.ops.levinson import lpc_from_autocorr
 MAX_SMEM_PER_BLOCK = 232448  # bytes a block may use on sm_90
 MAX_CHUNK_PER_LANE = 20  # the plan's longest register chunk before it widens the group
 THREADS_PER_BLOCK = 128
+_count_lock = threading.Lock()  # serving threads launch K1 concurrently
 
 
 def smem_stride(order: int, lim: int) -> int:
@@ -134,7 +136,8 @@ def lpc_cepstra(r: torch.Tensor, order: int, lim: int,
         msg = lib.lpc_cepstra_error_string(rc).decode()
         raise RuntimeError(f"lpc_cepstra kernel launch failed: {msg} ({rc}) with "
                            f"plan {(lanes, chunk, rows_per_block)}")
-    lpc_cepstra.launches += 1
+    with _count_lock:
+        lpc_cepstra.launches += 1
     return out
 
 

@@ -3,7 +3,8 @@
 Port of speech_recognition_tools_tpu/train/optim.py. `make_optimizer`
 returns `ClipAdam`, the transformation
 `optax.chain(optax.clip_by_global_norm(clip), optax.adam(lr))` (no chain
-when clip is None or 0), written out so that every step follows optax's
+when clip is None or 0; ClipAdam itself clips at any number, 0 included,
+as train_e2e's chain does), written out so that every step follows optax's
 arithmetic rather than torch.optim's:
 
   - clipping: with the global norm n = sqrt(sum_i |g_i|^2), the gradients
@@ -49,7 +50,9 @@ class ClipAdam:
     def __init__(self, learning_rate: float | Callable[[int], float],
                  clip_threshold: float | None = 1.0, *, b2: float = 0.999):
         self.learning_rate = learning_rate
-        self.clip_threshold = clip_threshold or None
+        # None: no clipping; a number, 0 included, clips as
+        # optax.clip_by_global_norm does (at 0 every update is zero)
+        self.clip_threshold = clip_threshold
         self.b2 = b2
 
     @property
@@ -110,7 +113,8 @@ class ClipAdam:
 def make_optimizer(name: str, learning_rate, clip_threshold: float | None = 1.0):
     name = name.lower()
     if name == "adam":
-        return ClipAdam(learning_rate, clip_threshold)
+        # as the JAX make_optimizer, a threshold of 0 or None chains no clip
+        return ClipAdam(learning_rate, clip_threshold or None)
     if name in NOT_PORTED:
         raise NotImplementedError(f"optimizer {name!r} is not yet ported (adam only)")
     raise ValueError(f"Unknown optimizer {name}")

@@ -86,6 +86,15 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr[-3000:]
 
 
+def test_import_checks_cover_the_serving_modules():
+    """The two isolation tests above and below walk the whole package; the
+    serving path's modules are among what they walk."""
+    mods = set(_port_modules())
+    for m in ("dsp.streaming", "infer.streaming_asr", "eval.wer", "cli.recog_e2e",
+              "cli.serve", "cli.serve_client", "cli.transcribe"):
+        assert f"speech_recognition_tools_tpu_torch.{m}" in mods, m
+
+
 def test_port_sources_import_nothing_of_jax():
     files = [os.path.join(r, f) for r, _, fs in os.walk(PORT)
              for f in fs if f.endswith(".py")]

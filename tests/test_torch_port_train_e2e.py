@@ -493,3 +493,31 @@ def test_train_e2e_main_checkpoints_both_ways(tmp_path):
                 ["--encoder_type", "conformer"], ["--compute_dtype", "bfloat16"]):
         with pytest.raises(NotImplementedError):
             tcli.main([egs, text, str(tmp_path / "x"), *geo, "--device", "cpu", *bad])
+
+
+def test_train_e2e_grad_clip_zero_matches_jax(tmp_path):
+    """--grad_clip 0 chains clip_by_global_norm(0) in both packages: one step
+    of each CLI from the same initial checkpoint (written by the JAX
+    package) leaves every parameter exactly as it was (g / |g| * 0 = 0,
+    and Adam's update of zero moments is zero)."""
+    egs, text, _ = _e2e_corpus(str(tmp_path), n=4)
+    _, _, params = _jax_asr(seed=4)
+    src = str(tmp_path / "init")
+    meta = dict(model_class="TransformerASR", **MODEL, feature_dim=D, mtlalpha=0.3,
+                lsm_weight=0.1, encoder_type="transformer")
+    from speech_recognition_tools_tpu_torch.io.text import build_char_vocab, save_vocab
+
+    vocab = build_char_vocab(["abcdefghij"])  # the corpus's letters: 14 ids
+    assert len(vocab) == MODEL["vocab_size"]
+    jckpt.save_checkpoint(src, "final", params, meta)
+    save_vocab(vocab, os.path.join(src, "vocab.json"))
+    argv = ["--init_from", src, "--grad_clip", "0", "--epochs", "1", "--batch_size", "8",
+            "--average_last", "1", "--warmup_steps", "3"]
+    losses = tcli.main([egs, text, str(tmp_path / "port"), *argv, "--device", "cpu"])
+    assert len(losses) == 1 and np.isfinite(losses[0]) and losses[0] > 0  # a step ran
+    jcli.main([egs, text, str(tmp_path / "jax"), *argv])
+    want = jax.tree.map(np.asarray, params)
+    for name in ("port", "jax"):
+        got, cfg = tckpt.load_checkpoint(str(tmp_path / name / "final_avg"))
+        assert cfg["grad_clip"] == 0.0
+        _tree_close(got["params"], want)
