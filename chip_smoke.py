@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed 0]
 
 Run from the root of a checkout. It builds the port's CUDA kernels from
-csrc/ and drives the port only (no JAX). Every phase asserts; any failure
+csrc/ (nvcc) and the native decoder from native/ (g++), and drives the
+port only (no JAX). Every phase asserts; any failure
 exits non-zero. Phases:
 
   1. the card's name and power limit (nvidia-smi) and the kernel build,
@@ -89,9 +90,26 @@ exits non-zero. Phases:
      utterances. Prints encoder ms a round (device and wall), featgen ms a
      push, partial and final latencies, audio s per wall s, K1 at the
      serving shapes and a profile of ten rounds;
-  9. one JSON line describing every kernel of the port (`launches` is the
+  9. in phase 6's directory: the e2e recipe's LM stage, train_lm.main at
+     wsj_fdlp_e2e's LM width (1 x 1000 GRU, embed 256, phase 5's 52-token
+     vocabulary, batch 64, bptt_len 128) for one epoch of 8 batches of
+     seeded transcripts; one step card against CPU (loss 1e-5 relative,
+     the Adam update 1e-3 x lr), a step's ms and tokens/s, and the final
+     checkpoint loaded by recog_e2e._load_lm and fused into one search of
+     phase 5's model. Then the hybrid decode end at timit_hybrid: featgen
+     (K1, counted) and egs of 12 decode utterances, compute_prior on phase
+     6's egs, train_ngram (order 3) on the decode transcripts over a
+     synthetic lexicon of pdf ids below 3,376, decode_wfst build-graph
+     (states_per_phone 1), dump_outputs --prior --prior_weight 0.8 of phase
+     6's checkpoint on the card and on the CPU (max|LL card - CPU| <= 1e-4),
+     decode_wfst decode (acoustic_scale 0.1, beam 16, max_active 7000) over
+     both arks, hypotheses held card against CPU; wall s by stage, decode
+     ms per utterance and the real-time factor of dump + decode. Last,
+     phase 5's model at ctc_weight 1.0: finite scores, no blank in a best
+     hypothesis;
+  10. one JSON line describing every kernel of the port (`launches` is the
      hybrid main path's count, `launches_by_path` each path's);
-  10. last line: {"ok": true, "device": {...}}.
+  11. the run's time, then the last line: {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -157,6 +175,25 @@ SERVE_NEAR_TIE = 1e-4
 SERVE_FEAT_TOL = dict(rtol=1e-3, atol=2e-3)  # phase 3's limits
 SERVE_MEM_ATOL = 1e-4
 SERVE_RECOG_UTTS, SERVE_RECOG_MAX_LEN = 4, 50
+
+# the LM stage and the hybrid decode end (phase 9): wsj_fdlp_e2e's RNNLM
+# (recipes/configs/wsj_fdlp_e2e.json "lm": 1 x 1000 GRU, embed 256) with
+# train_lm's defaults (batch 64, bptt_len 128, lr 1e-3) for one epoch of
+# LM_TEXTS transcripts (one sequence each: 8 batches); timit_hybrid's decode
+# (recipes/configs/timit_hybrid.json "decode": prior_weight 0.8;
+# run_corpus.py's build-graph and decode defaults: states_per_phone 1,
+# acoustic_scale 0.1, beam 16; the decode CLI's max_active 7000) over a
+# 3-gram of the decode set's transcripts, words of DECODE_WORDS with 2-4
+# random pdf ids each
+LM_TRAIN = dict(embed_dim=256, hidden=1000, layers=1, batch_size=64, bptt_len=128,
+                learning_rate=1e-3, epochs=1)
+LM_TEXTS, LM_TEXT_CHARS = 512, (60, 126)
+LM_STEP_CPU_SEQS = 16  # the card-vs-CPU step: the first 16 sequences of a batch
+LM_SEARCH_MAX_LEN = 30
+DECODE_UTTS, DECODE_WORDS = 12, 40
+HYBRID_DECODE = dict(acoustic_scale=0.1, beam=16.0, max_active=7000)
+DECODE_PRIOR_WEIGHT = 0.8
+DECODE_LL_ATOL, DECODE_COST_TOL = 1e-4, 1e-3
 
 # (order, coeff_num) of the front-ends in recipes/configs: wsj/chime4/
 # conformer e2e, timit_hybrid, reverb
@@ -421,7 +458,9 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
     adim 256, 4 heads, 12 encoder / 6 decoder layers, FFN 2048) -> beam 10
     joint CTC/attention search (ctc_weight 0.3, penalty 0, max_len 100)
     fused with a 1 x 1000 GRU RNNLM (embed 256) at weight 1.0, seeded
-    random flax-layout weights. Returns K1's launches over the driven run."""
+    random flax-layout weights. Returns (K1's launches over the driven run,
+    {"asr", "lm", "mem", "enc_len", "ctc", "vocab"}: the model, its RNNLM
+    and the encoder output of the first four utterances, for phase 9)."""
     import string
 
     from speech_recognition_tools_tpu_torch.decode.beam_jit import (
@@ -561,7 +600,8 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
         f"encoder cuda vs cpu max|err| {enc_err:.3e} (atol 1e-4); beam cuda vs cpu best "
         f"score rel err {beam_rel:.3e} (limit 1e-4), token-identical {same} of 2")
     log(f"[e2e] sample hypotheses: {texts[0][:60]!r} / {texts[1][:60]!r}")
-    return launches
+    return launches, dict(asr=asr, lm=lm, mem=mem[:4], enc_len=enc_len[:4], ctc=ctc[:4],
+                          vocab=vocab)
 
 
 def _rel(a, b):
@@ -616,6 +656,12 @@ def hybrid_train_phase(xh, lh, rng, dev, tmp):
     mean, std = (t.cpu().numpy() for t in cmvn_stats_masked(feats, nfr))
     utts = [(f"utt{b:02d}", feats[b, : int(nfr[b])].cpu().numpy()) for b in range(len(lh))]
     labels = {k: rng.randint(0, HYBRID_CLASSES, f.shape[0]) for k, f in utts}
+    # every class at least once, as in a real alignment, so that phase 9's
+    # log-prior (compute_prior on these egs) is finite
+    flat = np.concatenate(list(labels.values()))
+    assert flat.size >= HYBRID_CLASSES
+    flat[:HYBRID_CLASSES] = np.arange(HYBRID_CLASSES)
+    labels = dict(zip(labels, np.split(flat, np.cumsum([len(v) for v in labels.values()])[:-1])))
     build_egs(iter(utts), egs, labels, cmvn=(mean, std), num_targets=HYBRID_CLASSES)
     build_egs(iter(utts[: H["batch_size"]]), dev_egs, labels, cmvn=(mean, std),
               num_targets=HYBRID_CLASSES)
@@ -1239,10 +1285,272 @@ def serve_phase(x, lens, fdlp_cfg, feats, nfr, rng, dev, tmp):
     return serve_launches, transcribe_launches, k1
 
 
+def lm_train_phase(e2e, rng, dev, tmp):
+    """The e2e recipe's LM stage (run_corpus.py stage 3): train_lm.main on
+    the card at wsj_fdlp_e2e's LM width over phase 5's 52-token vocabulary,
+    one epoch of seeded transcripts; one step card against CPU on the same
+    weights and batch (loss 1e-5 relative, the Adam update 1e-3 x lr); a
+    step's time and tokens/s; the final checkpoint loaded by the port's
+    recog_e2e._load_lm and fused into one search of phase 5's model."""
+    import os
+    import string
+
+    from speech_recognition_tools_tpu_torch.cli import train_lm
+    from speech_recognition_tools_tpu_torch.cli.recog_e2e import _load_lm
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import (
+        beam_search_encoded,
+        tokens_to_list,
+    )
+    from speech_recognition_tools_tpu_torch.io.text import save_vocab
+    from speech_recognition_tools_tpu_torch.models.rnnlm import RNNLM
+    from speech_recognition_tools_tpu_torch.train.optim import ClipAdam
+    from speech_recognition_tools_tpu_torch.train.trainer import host_copy
+
+    L = LM_TRAIN
+    vocab = e2e["vocab"]
+    V = len(vocab)
+    letters = string.ascii_letters[: V - 4]
+    text, vocab_path, store = (os.path.join(tmp, d) for d in ("lm_text", "lm_vocab.json", "lm"))
+    texts = {f"lm{i:04d}": random_transcript(rng, letters, rng.randint(*LM_TEXT_CHARS))
+             for i in range(LM_TEXTS)}
+    with open(text, "w") as fh:
+        fh.writelines(f"{k} {v}\n" for k, v in texts.items())
+    save_vocab(vocab, vocab_path)
+    argv = [text, store, "--vocab", vocab_path, "--device", str(dev)]
+    argv += [a for k, v in L.items() for a in (f"--{k}", str(v))]
+    t_main, nll = _synced(lambda: train_lm.main(argv))
+    batches = list(train_lm.lm_batches(texts, vocab, L["batch_size"], L["bptt_len"], seed=0))
+    assert len(nll) == L["epochs"] and all(np.isfinite(nll)), nll
+    assert sorted(os.listdir(store)) == ["epoch_1", "final", "vocab.json"], os.listdir(store)
+
+    def fresh(device):
+        m = RNNLM(V, L["embed_dim"], L["hidden"], L["layers"], device=device)
+        m.reset_parameters(torch.Generator().manual_seed(7))
+        opt = ClipAdam(L["learning_rate"], None, inject=False)
+        return m, opt, train_lm.make_train_step(m, opt)
+
+    def on(device, toks, lens):
+        return (torch.as_tensor(toks, device=device).long(),
+                torch.as_tensor(lens, device=device).long())
+
+    # one step, card against CPU: identical weights, the first sequences of a batch
+    toks, lens = batches[0][0][:LM_STEP_CPU_SEQS], batches[0][1][:LM_STEP_CPU_SEQS]
+    toks = toks[:, : int(lens.max())]
+    steps = {}
+    for device in ("cpu", dev):
+        m, opt, step = fresh(device)
+        params = dict(m.named_parameters())
+        before = host_copy(params)
+        _, loss = step(opt.init(params), *on(device, toks, lens))
+        grads = {k: p.grad.detach().cpu() for k, p in params.items()}
+        delta = {k: p.detach().cpu() - before[k] for k, p in params.items()}
+        steps[str(device)] = (loss.item(), grads, delta)
+    (l_c, gr_c, d_c), (l_g, gr_g, d_g) = steps["cpu"], steps[str(dev)]
+    # the update the optimizer makes on the card against the one it makes on
+    # the CPU from the same (the card's) gradients
+    same = {k: v.clone() for k, v in before.items()}
+    cpu_opt = ClipAdam(L["learning_rate"], None, inject=False)
+    cpu_opt.apply(same, gr_g, cpu_opt.init(same))
+    upd_err = max((d_g[k] - (same[k] - before[k])).abs().max().item() for k in d_g)
+    e2e_err = max((d_g[k] - d_c[k]).abs().max().item() for k in d_c)
+    g_worst = _worst_grad(gr_g, gr_c)
+    assert _rel(l_g, l_c) <= 1e-5, (l_g, l_c)
+    assert upd_err <= 1e-3 * L["learning_rate"], upd_err
+
+    # a full batch of 64: ms a step, tokens a second, memory, profile
+    m, opt, step = fresh(dev)
+    params = dict(m.named_parameters())
+    ost = opt.init(params)
+    full = on(dev, *batches[0])
+    ost, _ = step(ost, *full)
+    torch.cuda.reset_peak_memory_stats()
+    t_step, (ost, _) = wall_s(lambda: step(ost, *full))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_tok = int((full[1] - 1).sum())
+    device_breakdown(f"LM train step (B={len(batches[0][1])}, U={batches[0][0].shape[1]})",
+                     lambda: step(ost, *full))
+
+    # the final checkpoint, loaded as recog_e2e --lm_dir loads it, fused
+    lm = _load_lm(store, device=dev)
+    assert lm.output.weight.shape == (V, L["hidden"])
+    t_s, (tk, sc) = _synced(lambda: beam_search_encoded(
+        e2e["asr"], e2e["mem"], e2e["enc_len"], e2e["ctc"], lm=lm, max_len=LM_SEARCH_MAX_LEN,
+        **E2E_BEAM))
+    assert torch.isfinite(sc).all(), sc
+    hyps = [tokens_to_list(tk[b], sc[b], e2e["asr"].cfg.eos_id) for b in range(len(sc))]
+    log(f"[lm-train] wsj_fdlp_e2e LM: train_lm.main {L['layers']} x {L['hidden']} GRU, embed "
+        f"{L['embed_dim']}, vocab {V}, {len(batches)} batches of {L['batch_size']} "
+        f"(bptt_len {L['bptt_len']}), {L['epochs']} epoch: {t_main:.2f} s, epoch nll "
+        + ", ".join(f"{v:.4f}" for v in nll))
+    log(f"[lm-train] card vs cpu, one step on {LM_STEP_CPU_SEQS} sequences: loss {l_g:.6f} / "
+        f"{l_c:.6f} (rel {_rel(l_g, l_c):.3e}, limit 1e-5); Adam update from the card's "
+        f"gradients, card vs cpu: max|diff| {upd_err:.3e} (limit "
+        f"{1e-3 * L['learning_rate']:.1e}); end to end max|update diff| {e2e_err:.3e}; the "
+        f"gradient that differs most: {g_worst[0]}, |diff| {g_worst[1]:.3e} of the global "
+        f"norm, {g_worst[2]:.3e} of its own")
+    log(f"[lm-train] B={len(batches[0][1])} x U={batches[0][0].shape[1]} ({n_tok} target "
+        f"tokens): {t_step * 1e3:.1f} ms a step = {n_tok / t_step:.0f} tokens/s; peak memory "
+        f"{peak:.2f} GiB")
+    log(f"[lm-train] final -> recog_e2e._load_lm -> beam 10 with phase 5's model on "
+        f"{len(sc)} utterances, lm_weight 1.0, max_len {LM_SEARCH_MAX_LEN}: {t_s:.2f} s, "
+        f"hypothesis lengths {[len(h) for h in hyps]}")
+
+
+def _cost_of(dec, ll, words, nbest=50):
+    """The decoding graph's best cost of the word-id sequence `words` under
+    log-likelihoods `ll` (its entry in an N-best list), or None."""
+    for ids, cost in dec.decode_nbest(ll, nbest, **HYBRID_DECODE):
+        if ids == words:
+            return cost
+    return None
+
+
+def hybrid_decode_phase(rng, dev, tmp):
+    """The hybrid recipe's decode end (run_corpus.py :696-702, :804-869) at
+    timit_hybrid on phase 6's train_am checkpoint and egs: featgen (K1) ->
+    egs of a decode set with phase 6's CMVN; compute_prior on phase 6's
+    egs; train_ngram (order 3) on the decode set's transcripts over a
+    synthetic lexicon of pdf ids below HYBRID_CLASSES; decode_wfst
+    build-graph; dump_outputs --prior on the card and on the CPU (max|LL
+    card - CPU| <= DECODE_LL_ATOL); decode_wfst decode over both arks, the
+    card's hypotheses held to the CPU's (a differing one may cost at most
+    DECODE_COST_TOL more under the CPU ark). Returns K1's launches over the
+    path."""
+    import os
+    import pickle
+
+    from speech_recognition_tools_tpu_torch.cli import (
+        compute_prior,
+        decode_wfst,
+        dump_outputs,
+        train_ngram,
+    )
+    from speech_recognition_tools_tpu_torch.decode.wfst import WfstDecoder
+    from speech_recognition_tools_tpu_torch.dsp.fdlp import FdlpConfig, fdlp_spectrogram_batch
+    from speech_recognition_tools_tpu_torch.io.egs import build_egs, load_egs
+    from speech_recognition_tools_tpu_torch.io.kaldi_ark import read_ark
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import lpc_cepstra
+
+    hyb = FdlpConfig()
+
+    def j(*parts):
+        return os.path.join(tmp, *parts)
+
+    xd, ld = speechlike_batch(rng, DECODE_UTTS, 2.0, 4.0)
+    audio_s = float(ld.sum()) / hyb.srate
+    words = [f"w{i:02d}" for i in range(DECODE_WORDS)]
+    lexicon = {w: list(rng.randint(0, HYBRID_CLASSES, rng.randint(2, 5))) for w in words}
+    keys = [f"dec{b:02d}" for b in range(DECODE_UTTS)]
+    refs = {k: [words[i] for i in rng.randint(0, DECODE_WORDS, rng.randint(3, 9))]
+            for k in keys}
+    with open(j("dec_text"), "w") as f:
+        f.writelines(f"{k} {' '.join(v)}\n" for k, v in refs.items())
+    with open(j("lexicon.txt"), "w") as f:
+        f.writelines(f"{w} {' '.join(map(str, p))}\n" for w, p in lexicon.items())
+    t = {}
+
+    lpc_cepstra.launches = 0
+    t0 = time.perf_counter()
+    feats, nfr = fdlp_spectrogram_batch(xd, ld, hyb, device=dev)
+    cfg_egs, _ = load_egs(j("hyb_egs"))
+    build_egs(((k, feats[b, : int(nfr[b])].cpu().numpy()) for b, k in enumerate(keys)),
+              j("dec_egs"), cmvn=(np.asarray(cfg_egs.cmvn_mean), np.asarray(cfg_egs.cmvn_std)))
+    t["featgen + egs"] = time.perf_counter() - t0
+    t["compute_prior"], _ = _synced(lambda: compute_prior.main(
+        [j("hyb_egs"), j("prior.pkl"), "--num_classes", str(HYBRID_CLASSES)]))
+    with open(j("prior.pkl"), "rb") as f:
+        assert np.isfinite(pickle.load(f)).all(), "a class phase 6's egs never label"
+    t["train_ngram"], _ = _synced(lambda: train_ngram.main(
+        [j("dec_text"), j("ngram"), "--order", "3"]))
+    t["build-graph"], _ = _synced(lambda: decode_wfst.main(
+        ["build-graph", j("ngram", "3gram.arpa.gz"), j("lexicon.txt"), j("graph"),
+         "--states_per_phone", "1"]))
+    dump = [j("hyb_am"), j("dec_egs")]
+    prior = ["--prior", j("prior.pkl"), "--prior_weight", str(DECODE_PRIOR_WEIGHT)]
+    t["dump_outputs (card)"], _ = _synced(lambda: dump_outputs.main(
+        [*dump, j("ll_card"), *prior, "--device", str(dev)]))
+    t["dump_outputs (cpu)"], _ = _synced(lambda: dump_outputs.main(
+        [*dump, j("ll_cpu"), *prior, "--device", "cpu"]))
+    decode = [a for k, v in HYBRID_DECODE.items() for a in (f"--{k}", str(v))]
+    for name in ("card", "cpu"):
+        t[f"decode ({name} ark)"], _ = _synced(lambda: decode_wfst.main(
+            ["decode", j("graph"), j(f"ll_{name}.ark"), j(f"hyp_{name}.txt"), *decode,
+             "--ref_text", j("dec_text")]))
+    launches = lpc_cepstra.launches
+    assert launches > 0, "the hybrid decode path did not launch K1"
+
+    ll_g, ll_c = dict(read_ark(j("ll_card.ark"))), dict(read_ark(j("ll_cpu.ark")))
+    assert list(ll_g) == list(ll_c) and sorted(ll_g) == keys
+    assert all(ll_g[k].shape == (int(nfr[b]), HYBRID_CLASSES) for b, k in enumerate(keys))
+    assert all(np.isfinite(v).all() for v in ll_g.values()), "non-finite log-likelihoods"
+    ll_err = max(float(np.abs(ll_g[k] - ll_c[k]).max()) for k in keys)
+    assert ll_err <= DECODE_LL_ATOL, ll_err
+    hyp = {}
+    for name in ("card", "cpu"):
+        with open(j(f"hyp_{name}.txt")) as f:
+            hyp[name] = dict((ln.split(maxsplit=1) + [""])[:2] for ln in f.read().splitlines())
+        assert sorted(hyp[name]) == keys, hyp[name]
+    differ = [k for k in keys if hyp["card"][k] != hyp["cpu"][k]]
+    if differ:
+        dec = WfstDecoder(j("graph", "HCLG.txt"))
+        w2i = {}
+        with open(j("graph", "words.txt")) as f:
+            for ln in f:
+                w, i = ln.split()
+                w2i[w] = int(i)
+        for k in differ:
+            ids = {n: [w2i[w] for w in hyp[n][k].split()] for n in ("card", "cpu")}
+            costs = {(n, a): _cost_of(dec, lls[k], ids[n])
+                     for n in ("card", "cpu") for a, lls in (("card", ll_g), ("cpu", ll_c))}
+            log(f"[hybrid-decode] {k} differs: card {hyp['card'][k]!r} / cpu "
+                f"{hyp['cpu'][k]!r}; costs (hypothesis, ark): {costs}")
+            worse = costs[("card", "cpu")]
+            assert worse is not None and worse - costs[("cpu", "cpu")] <= DECODE_COST_TOL, (
+                k, costs)
+    dec_ms = t["decode (card ark)"] / DECODE_UTTS * 1e3
+    rtf = (t["dump_outputs (card)"] + t["decode (card ark)"]) / audio_s
+    log(f"[hybrid-decode] timit_hybrid decode set: {DECODE_UTTS} utterances of 2-4 s "
+        f"({audio_s:.1f} s audio, {int(nfr.sum())} frames), lexicon of {DECODE_WORDS} words "
+        f"over pdf ids < {HYBRID_CLASSES}, 3-gram of the decode transcripts, "
+        f"acoustic_scale {HYBRID_DECODE['acoustic_scale']} beam {HYBRID_DECODE['beam']} "
+        f"max_active {HYBRID_DECODE['max_active']}, prior_weight {DECODE_PRIOR_WEIGHT}: "
+        f"K1 launches {launches}")
+    log("[hybrid-decode] wall s by stage: " + ", ".join(f"{k} {v:.3f}" for k, v in t.items()))
+    log(f"[hybrid-decode] max|LL card - cpu| {ll_err:.3e} (atol {DECODE_LL_ATOL}); "
+        f"hypotheses identical {DECODE_UTTS - len(differ)} of {DECODE_UTTS}; decode "
+        f"{dec_ms:.1f} ms per utterance; dump (card) + decode real-time factor {rtf:.4f}")
+    log(f"[hybrid-decode] sample hypothesis {hyp['card'][keys[0]][:60]!r}")
+    return launches
+
+
+def ctc_only_check(e2e):
+    """Phase 5's model at ctc_weight 1.0 (the joint search on CTC prefix
+    scores alone, with the RNNLM): every score finite and no best
+    hypothesis holds a blank."""
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import (
+        beam_search_encoded,
+        tokens_to_list,
+    )
+
+    asr = e2e["asr"]
+    beam = dict(E2E_BEAM, ctc_weight=1.0)
+    t_s, (tk, sc) = _synced(lambda: beam_search_encoded(
+        asr, e2e["mem"], e2e["enc_len"], e2e["ctc"], lm=e2e["lm"], max_len=LM_SEARCH_MAX_LEN,
+        **beam))
+    hyps = [tokens_to_list(tk[b], sc[b], asr.cfg.eos_id) for b in range(len(sc))]
+    assert torch.isfinite(sc).all(), sc
+    assert all(asr.cfg.blank_id not in h for h in hyps) and any(hyps), hyps
+    log(f"[ctc-only] ctc_weight 1.0, beam {beam['beam_size']}, RNNLM, max_len "
+        f"{LM_SEARCH_MAX_LEN}, {len(sc)} utterances: {t_s:.2f} s, every score finite, best "
+        f"scores {[round(float(v), 3) for v in sc.max(1).values]}, hypothesis lengths "
+        f"{[len(h) for h in hyps]}, no blank in any")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -1287,8 +1595,16 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    kernels.build()
-    log(f"[build] kernels built in {time.perf_counter() - t0:.2f} s")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from speech_recognition_tools_tpu_torch.io import native
+
+    with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
+        native_build = pool.submit(native.build)
+        kernels.build()
+        log(f"[build] kernels built in {time.perf_counter() - t0:.2f} s")
+        log(f"[build] native decoder built ({os.path.basename(native_build.result())}) in "
+            f"{time.perf_counter() - t0:.2f} s")
 
     # ---- 2. K1 against its plain version ----
     all_lanes, _ = kernels.instantiations()
@@ -1474,7 +1790,7 @@ def main():
         f"plain_ms={p_ms:.3f} bound_ms={bound:.5f} ({by})")
 
     # ---- 5. the e2e slice at wsj_fdlp_e2e ----
-    e2e_launches = e2e_phase(x, lens, e2e, rng, dev)
+    e2e_launches, e2e_model = e2e_phase(x, lens, e2e, rng, dev)
 
     # ---- 6-7. the training paths; 8. online serving ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -1482,8 +1798,14 @@ def main():
         e2e_train_launches = e2e_train_phase(x, lens, e2e, rng, dev, tmp)
         serve_launches, transcribe_launches, _ = serve_phase(x, lens, e2e, fa, na, rng, dev,
                                                              tmp)
+        # ---- 9. the LM stage, the hybrid decode end, ctc_weight 1.0 ----
+        t9 = time.perf_counter()
+        lm_train_phase(e2e_model, rng, dev, tmp)
+        decode_launches = hybrid_decode_phase(rng, dev, tmp)
+        ctc_only_check(e2e_model)
+        log(f"[phase9] {time.perf_counter() - t9:.2f} s")
 
-    # ---- 9. every kernel of the port ----
+    # ---- 10. every kernel of the port ----
     log(json.dumps({"kernels": [{
         "name": "lpc_cepstra",
         "route": "cuda",
@@ -1493,7 +1815,8 @@ def main():
         "launches_by_path": {"featgen": featgen_launches, "hybrid": main_launches,
                              "e2e": e2e_launches, "hybrid_train": hybrid_train_launches,
                              "e2e_train": e2e_train_launches, "serve": serve_launches,
-                             "transcribe": transcribe_launches},
+                             "transcribe": transcribe_launches,
+                             "hybrid_decode": decode_launches},
         "max_abs_err": main_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -1503,7 +1826,9 @@ def main():
         "library_ms": None,
     }]}))
 
-    # ---- 10. contract line ----
+    log(f"[run] {time.perf_counter() - t_run:.1f} s from start to the contract line")
+
+    # ---- 11. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,2 +1,4 @@
 """Decoding (port of speech_recognition_tools_tpu/decode): CTC prefix
-scoring and the batched joint CTC/attention beam search."""
+scoring, the batched joint CTC/attention beam search, greedy and Viterbi
+decoding, log-likelihood export, and the hybrid WFST stack (graph build,
+the native decoder, lattices)."""

@@ -23,7 +23,8 @@ Where the port differs in form, not in result:
   - the RNNLM carries each beam's GRU state and reorders it with the
     beams, instead of rerunning the GRU over the whole buffer;
   - the top K of each utterance come from a stable descending sort, so
-    exact ties go to the lower flat index, as in jax.lax.top_k;
+    exact ties go to the lower flat index and NaN ranks below every score,
+    as in jax.lax.top_k;
   - scores are float32 throughout (the JAX search holds them in float64
     under x64).
 """
@@ -57,6 +58,21 @@ class _PartTimer:
         if part is not None:
             self.timings[part] = self.timings.get(part, 0.0) + now - self.t
         self.t = now
+
+
+def _top_k(flat: torch.Tensor, k: int):
+    """The k largest entries of each row of `flat` (values, indices) in
+    jax.lax.top_k's order: descending, exact ties to the lower index, and
+    NaN below every number. A NaN arises where a beam that does not exist
+    yet (att_cum -inf) meets ctc_weight 1.0: 0 * -inf. torch's sort would
+    rank it above every number."""
+    nan = torch.isnan(flat)
+    _, order = torch.sort(flat.masked_fill(nan, float("-inf")), dim=1, descending=True,
+                          stable=True)
+    # a second stable sort moves the NaNs behind every number, in place
+    _, last = torch.sort(nan.gather(1, order).to(torch.uint8), dim=1, stable=True)
+    idx = order.gather(1, last[:, :k])
+    return flat.gather(1, idx), idx
 
 
 @torch.no_grad()
@@ -124,9 +140,7 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
         done[..., cfg.eos_id] = 0.0
         done = done + torch.where(finished, scores, 0.0)[..., None]
         total = torch.where(finished[..., None], done, total)
-        top_scores, top_idx = torch.sort(total.view(B, K * V), dim=1, descending=True,
-                                         stable=True)
-        top_scores, top_idx = top_scores[:, :K], top_idx[:, :K]
+        top_scores, top_idx = _top_k(total.view(B, K * V), K)
         beam_idx = torch.div(top_idx, V, rounding_mode="floor")
         tok = top_idx % V
         tick("topk")

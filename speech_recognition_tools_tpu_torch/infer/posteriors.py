@@ -1,7 +1,8 @@
 """Posterior / log-likelihood extraction and class priors.
 
 Port of speech_recognition_tools_tpu/infer/posteriors.py::extract_posteriors,
-genclassifier_outputs and compute_log_prior_from_counts (reference
+genclassifier_outputs, compute_log_prior_from_counts and
+compute_log_prior_from_alignments (reference
 extract_posterior.py :39-68, dump_genclassifier_outputs.py :100-106,
 compute_log_prior.py :20-40).
 """
@@ -43,3 +44,17 @@ def genclassifier_outputs(logits, log_prior=None, prior_weight: float = 0.8,
 def compute_log_prior_from_counts(counts):
     counts = np.asarray(counts, np.float64)
     return np.log(counts / counts.sum())
+
+
+def compute_log_prior_from_alignments(ali_iter, num_classes: int,
+                                      ali_type: str = "pdf"):
+    """Class log-priors from (utt, int-vector) alignments. ali_type='phone'
+    shifts labels by -1 like the reference (ali-to-phones is 1-based);
+    labels outside [0, num_classes) are not counted."""
+    p = np.zeros(num_classes, np.float64)
+    for _, ali in ali_iter:
+        ali = np.asarray(ali)
+        if ali_type == "phone":
+            ali = ali - 1
+        np.add.at(p, ali[(ali >= 0) & (ali < num_classes)], 1)
+    return np.log(p / p.sum())

@@ -14,10 +14,11 @@ the three input biases stacked r|z|n, and no bias is folded or split off.
 models/transformer_asr.py::TransformerASR and models/rnnlm.py::RNNLM, and
 raise if any leaf of the flax tree is left unused.
 
-`rnn_classifier_to_jax` and `transformer_asr_to_jax` are the exact
-inverses (a state_dict, or any dict of tensors keyed like one, such as an
-optimizer's moments -> the flax tree with its outer {"params": ...}): every
-mapping is a transpose, reshape or split, so the round trip is bit-exact.
+`rnn_classifier_to_jax`, `transformer_asr_to_jax` and `rnnlm_to_jax` are
+the exact inverses (a state_dict, or any dict of tensors keyed like one,
+such as an optimizer's moments -> the flax tree with its outer
+{"params": ...}): every mapping is a transpose, reshape or split, so the
+round trip is bit-exact.
 `adam_state_to_jax` / `adam_state_from_jax` carry train/optim.py's Adam
 state in the layout flax's `to_state_dict` gives the optax state.
 """
@@ -258,19 +259,34 @@ def rnnlm_from_jax(params: dict) -> dict:
     return sd
 
 
+def rnnlm_to_jax(sd: dict) -> dict:
+    """The port's RNNLM state_dict (or a dict keyed like it) -> the flax
+    tree {"params": {"embed", "rnn", "output"}} of numpy arrays."""
+    n = len({k.split(".")[2] for k in sd if k.startswith("rnn.layers.")})
+    return {"params": {
+        "embed": {"embedding": _np(sd["embed.weight"]).copy()},
+        "rnn": {f"gru_{i}": {"cell": gru_cell_to_jax(sd, f"rnn.layers.{i}")} for i in range(n)},
+        "output": {"kernel": _np(sd["output.weight"]).T.copy(),
+                   "bias": _np(sd["output.bias"]).copy()},
+    }}
+
+
 # ------------------------------------------------------------ optimizer state
 
 
-def adam_state_to_jax(state: dict, params_to_jax, *, clip: bool) -> dict:
+def adam_state_to_jax(state: dict, params_to_jax, *, clip: bool,
+                      inject: bool = True) -> dict:
     """train/optim.py::ClipAdam's state -> the tree flax's `to_state_dict`
     makes of the matching optax state; `params_to_jax` maps a dict keyed
     like the parameters (the moments) to the flax tree.
 
     optax.adam(lr) is chain(scale_by_adam, scale_by_learning_rate): with a
     schedule the second holds the schedule's count, with a fixed rate it
-    holds nothing; clipping adds an empty first link. A fixed rate is the
-    JAX trainer's `inject_hyperparams` form, which wraps the chain with its
-    own count and the learning rate. So, for clip + schedule (train_e2e):
+    holds nothing; clipping adds an empty first link. A fixed rate is, by
+    default, the JAX trainer's `inject_hyperparams` form, which wraps the
+    chain with its own count and the learning rate; `inject=False` gives
+    plain optax.adam(lr) (train_lm): {"0": {"count", "mu", "nu"}, "1": {}}.
+    So, for clip + schedule (train_e2e):
     {"0": {}, "1": {"0": {"count", "mu", "nu"}, "1": {"count"}}}.
     """
     count = np.asarray(state["count"], np.int32)
@@ -280,7 +296,7 @@ def adam_state_to_jax(state: dict, params_to_jax, *, clip: bool) -> dict:
     chain = {"0": adam, "1": {} if fixed else {"count": count}}
     if clip:
         chain = {"0": {}, "1": chain}
-    if not fixed:
+    if not (fixed and inject):
         return chain
     return {"count": count,
             "hyperparams": {"learning_rate": np.asarray(state["learning_rate"], np.float32)},
@@ -289,7 +305,8 @@ def adam_state_to_jax(state: dict, params_to_jax, *, clip: bool) -> dict:
 
 def adam_state_from_jax(tree: dict, params_from_jax, *, clip: bool) -> dict:
     """Inverse of adam_state_to_jax: the optax state tree -> ClipAdam's
-    state, with the moments as CPU tensors keyed like the parameters."""
+    state, with the moments as CPU tensors keyed like the parameters. A
+    plain optax.adam(lr) tree holds no learning rate: the caller adds it."""
     fixed = "hyperparams" in tree
     chain = tree["inner_state"] if fixed else tree
     if clip:

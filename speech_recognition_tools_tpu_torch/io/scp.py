@@ -1,4 +1,4 @@
-"""scp / segments parsing (from speech_recognition_tools_tpu/io/scp.py;
+"""scp / segments parsing (copy of speech_recognition_tools_tpu/io/scp.py;
 Kaldi conventions, as consumed by the reference CLIs
 computeFDLPSpectrogram.py:125-154 and computeModulationSpectrum_segments.py)."""
 
@@ -14,6 +14,13 @@ def read_scp(path: str) -> list[tuple[str, str]]:
                 continue
             entries.append((tokens[0], " ".join(tokens[1:])))
     return entries
+
+
+def write_scp(entries, path: str):
+    with open(path, "w") as f:
+        for key, value in entries:
+            f.write(f"{key} {value}\n")
+    return path
 
 
 def read_segments(path: str) -> list[tuple[str, str, float, float]]:

@@ -1,9 +1,10 @@
 """Recurrent language model for shallow fusion in beam search.
 
 Port of speech_recognition_tools_tpu/models/rnnlm.py::RNNLM with its GRU
-cell: Embed -> masked GRU stack -> Dense to vocab logits (the reference
-fuses a 1 x 1000 RNNLM at lm-weight 1.0, conf/lm.yaml and decode.yaml).
-io/jax_params.py::rnnlm_from_jax carries a flax tree over.
+cell, and of lm_loss: Embed -> masked GRU stack -> Dense to vocab logits
+(the reference fuses a 1 x 1000 RNNLM at lm-weight 1.0, conf/lm.yaml and
+decode.yaml). io/jax_params.py::rnnlm_from_jax and rnnlm_to_jax carry a
+flax tree over and back.
 
 `forward` scores a padded batch of token sequences, as the JAX module
 does. `step` advances a carried state by one token per row: the beam
@@ -18,6 +19,7 @@ import torch
 from torch import nn
 
 from speech_recognition_tools_tpu_torch.device import configure_cuda, resolve_device
+from speech_recognition_tools_tpu_torch.models import flax_init
 from speech_recognition_tools_tpu_torch.models.recurrent import GRUStack
 
 
@@ -39,6 +41,16 @@ class RNNLM(nn.Module):
         self.rnn = GRUStack(embed_dim, layers, hidden, device=dev)
         self.output = nn.Linear(hidden, vocab_size, device=dev)
 
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Draw every parameter as the JAX model's `init` does (flax's Embed
+        N(0, 1 / embed_dim), the GRU cells' and the output Dense's
+        defaults), from `generator` (a CPU torch.Generator) in a fixed
+        order."""
+        flax_init.normal_(self.embed.weight, self.embed.embedding_dim**-0.5, generator)
+        for layer in self.rnn.layers:
+            layer.reset_parameters(generator)
+        flax_init.dense_(self.output, generator)
+
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor | None = None):
         """tokens (B, U), -1 padded -> next-token logits (B, U, V)."""
         if lengths is None:
@@ -55,3 +67,16 @@ class RNNLM(nn.Module):
         (next-token logits (N, V), new state)."""
         state = self.rnn.step(self.embed(tokens.clamp_min(0)), state)
         return self.output(state[-1]), state
+
+
+def lm_loss(model: RNNLM, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy over the valid positions of -1-padded
+    sequences tokens (B, U) with lengths (B,): the targets are the tokens
+    shifted by one, and the mean runs over the B x (length - 1) of them."""
+    logits = model(tokens[:, :-1], lengths - 1)
+    tgt = tokens[:, 1:]
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, tgt.clamp_min(0)[..., None])[..., 0]
+    valid = (torch.arange(tgt.shape[1], device=tgt.device)[None, :]
+             < (lengths - 1)[:, None]).to(nll.dtype)
+    return (nll * valid).sum() / valid.sum().clamp_min(1)

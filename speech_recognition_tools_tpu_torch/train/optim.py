@@ -19,9 +19,11 @@ arithmetic rather than torch.optim's:
 
 The state is a dict: "count" (an int), the moments "mu" and "nu" (dicts
 of tensors keyed like the parameters) and, for a fixed learning rate,
-"learning_rate" (a float rounded to float32: the hyperparameter that the
-JAX trainer's `optax.inject_hyperparams` holds and its LR-revert rule
-changes). io/jax_params.py::adam_state_to_jax writes it in optax's layout.
+"learning_rate": by default a float rounded to float32, the hyperparameter
+that the JAX trainer's `optax.inject_hyperparams` holds and its LR-revert
+rule changes; with `inject=False` the rate as given, as plain
+optax.adam(lr) scales by it (train_lm). io/jax_params.py::adam_state_to_jax
+writes the state in optax's layout.
 Only Adam is ported; the JAX package's other four names raise
 NotImplementedError.
 """
@@ -44,12 +46,15 @@ class ClipAdam:
     """Global-norm clipping followed by Adam, over a dict of parameters.
 
     learning_rate: a float, or a schedule count -> float; b2: 0.999 as
-    optax.adam's default (train_am), 0.98 for train_e2e.
+    optax.adam's default (train_am), 0.98 for train_e2e; inject: whether a
+    fixed rate is held as inject_hyperparams holds it (in float32).
     """
 
     def __init__(self, learning_rate: float | Callable[[int], float],
-                 clip_threshold: float | None = 1.0, *, b2: float = 0.999):
+                 clip_threshold: float | None = 1.0, *, b2: float = 0.999,
+                 inject: bool = True):
         self.learning_rate = learning_rate
+        self.inject = inject
         # None: no clipping; a number, 0 included, clips as
         # optax.clip_by_global_norm does (at 0 every update is zero)
         self.clip_threshold = clip_threshold
@@ -67,7 +72,8 @@ class ClipAdam:
                 "nu": {k: torch.zeros_like(p) for k, p in params.items()},
             }
         if not self.scheduled:
-            state["learning_rate"] = f32(self.learning_rate)
+            lr = float(self.learning_rate)
+            state["learning_rate"] = f32(lr) if self.inject else lr
         return state
 
     @staticmethod

@@ -382,6 +382,84 @@ def test_beam_search_matches_jax_host_loop(asr, lm, with_lm):
     assert tbeam.tokens_to_list(tt[0], ts[0], EOS) == want
 
 
+@pytest.mark.parametrize("with_lm,penalty", [(False, 0.0), (True, 0.5)])
+def test_beam_search_ctc_weight_one_matches_both_jax_searches(asr, lm, with_lm, penalty):
+    """ctc_weight 1.0: beams 2..K start at att_cum -inf, so their rows at
+    step 0 are 0 * -inf = NaN. Ranked below every score, as lax.top_k ranks
+    them, the search keeps finite CTC-prefix hypotheses: token-identical to
+    beam_search_jit_batched (B = 3, scores at atol 1e-4) and to the
+    host-loop beam_search (the first utterance)."""
+    jmodel, params, port = asr
+    jlm, lm_params, lm_port = lm
+    x, lens = _feats()
+    fused = lm_port if with_lm else None
+    jt, js = jbeam.beam_search_jit_batched(
+        jmodel, params, jnp.asarray(x), jnp.asarray(lens), beam_size=4, max_len=12,
+        ctc_weight=1.0, penalty=penalty, lm_weight=1.0,
+        lm_apply=jrnnlm.make_jit_fusion_scorer(jlm, lm_params) if with_lm else None)
+    jt, js = np.asarray(jt), np.asarray(js)
+    tt, ts = tbeam.beam_search_batched(port, x, lens, beam_size=4, max_len=12, ctc_weight=1.0,
+                                       penalty=penalty, lm=fused, lm_weight=1.0, device="cpu")
+    assert torch.isfinite(ts).all() and np.isfinite(js).all()
+    got = [tbeam.tokens_to_list(tt[b], ts[b], EOS) for b in range(3)]
+    assert got == [jbeam.tokens_to_list(jt[b], js[b], EOS) for b in range(3)]
+    assert all(g and any(t != 0 for t in g) for g in got)
+    np.testing.assert_allclose(ts.numpy(), js, rtol=0, atol=1e-4)
+    host = jtasr.beam_search(
+        jmodel, params, jnp.asarray(x[:1]), jnp.asarray(lens[:1]), jmodel.cfg, beam_size=4,
+        max_len=12, ctc_weight=1.0, penalty=penalty, lm_weight=1.0,
+        lm_apply=jrnnlm.make_fusion_scorer(jlm, lm_params) if with_lm else None)
+    assert got[0] == host
+
+
+def test_top_k_ranks_nan_as_lax_top_k():
+    """The NaN of 0 * -inf (sign bit set) below -inf, exact ties to the
+    lower index, as jax.lax.top_k ranks them."""
+    inf = np.float32(np.inf)
+    with np.errstate(invalid="ignore"):
+        nan = np.float32(0.0) * -inf
+    assert np.isnan(nan) and np.signbit(nan)
+    rows = np.array([[nan, 1.0, -inf, 1.0, nan, -2.0],
+                     [nan, nan, -inf, nan, 0.5, -inf]], np.float32)
+    vals, idx = tbeam._top_k(torch.as_tensor(rows), 5)
+    jv, ji = jax.lax.top_k(jnp.asarray(rows), 5)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+
+
+def test_recog_e2e_ctc_weight_one_matches_jax_cli(asr, lm, tmp_path):
+    """recog_e2e --ctc_weight 1.0 --jit_decode (beam 3, max_len 6, the RNNLM
+    fused) on a model and LM directory the JAX package wrote: out_text
+    identical to the JAX CLI's (its batched search: one compile, where its
+    host loop compiles every step), and no hypothesis empty."""
+    from speech_recognition_tools_tpu.cli import recog_e2e as jrecog
+    from speech_recognition_tools_tpu.io import egs as jegs
+    from speech_recognition_tools_tpu.train import checkpoint as jckpt
+    from speech_recognition_tools_tpu_torch.cli import recog_e2e as trecog
+
+    _, params, _ = asr
+    _, lm_params, _ = lm
+    d, lm_dir = str(tmp_path / "am"), str(tmp_path / "lm")
+    jckpt.save_checkpoint(d, "final_avg", params, dict(
+        **MODEL, mtlalpha=0.3, lsm_weight=0.0, encoder_type="transformer", feature_dim=D))
+    jtext.save_vocab(ttext.build_char_vocab(["abcdefghij"]), f"{d}/vocab.json")
+    jckpt.save_checkpoint(lm_dir, "final", lm_params, dict(
+        vocab_size=MODEL["vocab_size"], **LM, layers=1, cell="gru"))
+    x, _ = _feats(B=2)  # one length, so one padded batch
+    egs = str(tmp_path / "egs")
+    jegs.build_egs(iter([(f"u{b}", x[b]) for b in range(2)]), egs)
+    common = ["--beam_size", "3", "--max_len", "6", "--ctc_weight", "1.0", "--lm_dir", lm_dir,
+              "--jit_decode", "--batch_size", "2"]
+    tout, jout = str(tmp_path / "port.txt"), str(tmp_path / "jax.txt")
+    trecog.main([d, egs, tout, *common, "--device", "cpu"])
+    jrecog.main([d, egs, jout, *common])
+    with open(tout) as f, open(jout) as g:
+        got, want = f.read(), g.read()
+    assert got == want
+    assert len(got.splitlines()) == 2
+    assert all(len(ln.split(maxsplit=1)) == 2 for ln in got.splitlines())
+
+
 def test_beam_search_stops_when_every_beam_has_finished(asr):
     """A decoder biased hard towards eos: every beam ends within a few
     steps, the loop stops there (the rest of the buffer stays -1) and the

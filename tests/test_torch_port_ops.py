@@ -88,11 +88,37 @@ def test_port_imports_no_jax():
 
 def test_import_checks_cover_the_serving_modules():
     """The two isolation tests above and below walk the whole package; the
-    serving path's modules are among what they walk."""
+    serving path's modules, the LM-training stage's and the hybrid decode
+    end's are among what they walk."""
     mods = set(_port_modules())
     for m in ("dsp.streaming", "infer.streaming_asr", "eval.wer", "cli.recog_e2e",
-              "cli.serve", "cli.serve_client", "cli.transcribe"):
+              "cli.serve", "cli.serve_client", "cli.transcribe",
+              "cli.train_lm", "models.rnnlm", "cli.compute_prior", "cli.dump_outputs",
+              "cli.train_ngram", "cli.decode_wfst", "decode.export", "decode.viterbi",
+              "decode.graph", "decode.wfst", "decode.lattice", "models.ngram_lm",
+              "align.forced", "io.kaldi_ark", "io.scp", "io.native"):
         assert f"speech_recognition_tools_tpu_torch.{m}" in mods, m
+
+
+def test_native_library_builds_only_into_the_port(monkeypatch, tmp_path):
+    """io/native.py compiles native/ark_io.cpp and native/fst_decode.cpp
+    into the port's _build/ (the JAX loader's native/build/ is not
+    touched), and a failed build raises instead of falling back."""
+    from speech_recognition_tools_tpu_torch.io import native
+
+    assert os.path.dirname(native.library_path()) == os.path.join(PORT, "_build")
+    assert [os.path.relpath(s, REPO) for s in native.SOURCES] == [
+        os.path.join("native", "ark_io.cpp"), os.path.join("native", "fst_decode.cpp")]
+    assert os.path.exists(native.build()) and native.load() is native.load()
+    bad = tmp_path / "bad.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SOURCES", (str(bad),))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="native build failed"):
+        native.build()
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        native.build()
 
 
 def test_port_sources_import_nothing_of_jax():
