@@ -107,9 +107,37 @@ exits non-zero. Phases:
      ms per utterance and the real-time factor of dump + decode. Last,
      phase 5's model at ctc_weight 1.0: finite scores, no blank in a best
      hypothesis;
-  10. one JSON line describing every kernel of the port (`launches` is the
+  10. (a) the MFCC hybrid front-end at wsj_hybrid (recipes/configs/
+     wsj_hybrid.json: 16 kHz, 30 filters, 0.02 s, nfft 1024, 13 cepstra)
+     on phase 3's 32 utterances written as wavs: compute_mfcc.main and
+     compute_mel_spectrum.main (23 filters, log) on the card and on the
+     CPU, features held card against CPU (MFCC_TOL) on every frame, the
+     real-time factor of each CLI and of mfcc_batch alone; one
+     compute_mfcc run with --profile_dir, whose trace file must appear;
+     egs with per-utterance CMVN as run_corpus.py computes it and context
+     4 recorded; train_am.main --arch rnn at wsj_hybrid's width (4 x 300
+     GRU, 13 features, 3,376 classes, batch 64) for one epoch of 2
+     batches; one step card against CPU on 4 utterances of 150 frames
+     (loss 1e-5 relative). (b) the conformer at wsj_fdlp_conformer_e2e (adim 256, 4
+     heads, 12 conformer layers with conv_kernel 15, FFN 2048, 6 decoder
+     layers) on phase 3's batch with global CMVN and seeded weights with
+     nonzero biases: recognize_batch (FDLP on K1, counted; beam 10,
+     ctc_weight 0.3, the 1 x 1000 RNNLM, max_len CONF_MAX_LEN) against
+     the chain run part by part; CTC log-probs from K1 features against
+     the plain backend's (E2E_CTC_TOL); the encoder card against CPU on
+     two utterances (atol 1e-4); train_e2e.main --encoder_type conformer
+     on phase 7's egs for one epoch of 2 batches of 32, its final_avg
+     decoded by recog_e2e.main on 4 utterances; then with attn_chunk 16
+     / left 4, from a model directory (serving.json, CMVN), the streamed
+     encoder memory against the offline chunked encode (atol 1e-4) and 5
+     streams through a 4-row StreamBatcher (one slot reused) whose finals
+     equal per-stream OnlineASRPipeline runs (K1 counted; a mismatch only
+     at a CTC near-tie). Each part prints its wall and device ms and busy
+     share;
+  11. one JSON line describing every kernel of the port (`launches` is the
      hybrid main path's count, `launches_by_path` each path's);
-  11. the run's time, then the last line: {"ok": true, "device": {...}}.
+  12. the run's time, the card's name and power limit again, then the last
+     line: {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -194,6 +222,29 @@ DECODE_UTTS, DECODE_WORDS = 12, 40
 HYBRID_DECODE = dict(acoustic_scale=0.1, beam=16.0, max_active=7000)
 DECODE_PRIOR_WEIGHT = 0.8
 DECODE_LL_ATOL, DECODE_COST_TOL = 1e-4, 1e-3
+
+# phase 10 (a): wsj_hybrid's front-end (recipes/configs/wsj_hybrid.json
+# "frontend" with the compute_mfcc CLI's defaults: 30 filters, 0.02 s, nfft
+# 1024) and its am section (4 x 300 GRU, 3,376 classes, batch 64, Adam)
+# for one epoch of 2 batches (phase 3's 32 utterances, each four times);
+# card against CPU features: allclose(rtol, atol) over every valid frame
+# (float32 FFTs and GEMMs summed in other orders, then log10)
+MFCC_FLAGS = dict(srate=16000, nfilters=30, fduration=0.02, frate=100, nfft=1024)
+MFCC_TRAIN = dict(num_layers=4, hidden_dim=300, optimizer="adam", learning_rate=1e-3,
+                  batch_size=64, epochs=1)
+MFCC_CLASSES, MFCC_CONTEXT, MFCC_COPIES = 3376, 4, 4
+# the frames of the card-vs-CPU step and of the profiled step (the CPU GRU
+# loop, and the profiler's pass over ~190 launches a frame, are slow)
+MFCC_STEP_FRAMES = 150
+MFCC_TOL = dict(rtol=1e-4, atol=1e-3)
+
+# phase 10 (b): wsj_fdlp_conformer_e2e.json's model (:17-35) and decode
+# (:36-41), with E2E_AM's vocabulary; the streaming setting of phase 8; one
+# epoch of phase 7's two batches of 32
+CONF_AM = dict(E2E_AM, encoder_type="conformer", conv_kernel=15)
+CONF_MAX_LEN = 50
+CONF_TRAIN = dict(E2E_TRAIN, epochs=1, average_last=1)
+CONF_STREAMS, CONF_SLOTS = 5, 4
 
 # (order, coeff_num) of the front-ends in recipes/configs: wsj/chime4/
 # conformer e2e, timit_hybrid, reverb
@@ -404,7 +455,8 @@ def random_gru_params(rng, D, layers, H, C):
 def random_asr_params(rng, cfg, idim):
     """A flax-layout TransformerASR parameter tree of seeded numpy arrays at
     flax's init scales (kernels N(0, 1/fan_in)), with small random biases
-    and LayerNorm affines so that every leaf matters."""
+    and LayerNorm affines so that every leaf matters; conformer encoder
+    blocks (flax's explicit names) when cfg.encoder_type is 'conformer'."""
     A, H = cfg.adim, cfg.aheads
 
     def normal(*shape, fan):
@@ -431,12 +483,23 @@ def random_asr_params(rng, cfg, idim):
         p.update(Dense_0=dense(A, ff), Dense_1=dense(ff, A))
         return p
 
+    def conformer_block(ff):
+        k = cfg.conv_kernel
+        p = {f"{n}_norm": norm() for n in ("ffn1", "mhsa", "conv", "conv_mid", "ffn2", "final")}
+        p.update(ffn1_in=dense(A, ff), ffn1_out=dense(ff, A), ffn2_in=dense(A, ff),
+                 ffn2_out=dense(ff, A), mhsa=mha(), conv_pointwise_in=dense(A, 2 * A),
+                 conv_pointwise_out=dense(A, A),
+                 conv_depthwise={"kernel": normal(k, 1, A, fan=k), "bias": small(A)})
+        return p
+
+    enc_block = ((lambda: conformer_block(cfg.eunits)) if cfg.encoder_type == "conformer"
+                 else (lambda: block(cfg.eunits, False)))
     d2 = ((idim - 1) // 2 - 1) // 2
     embed = {"Conv_0": {"kernel": normal(3, 3, 1, A, fan=9), "bias": small(A)},
              "Conv_1": {"kernel": normal(3, 3, A, A, fan=9 * A), "bias": small(A)},
              "Dense_0": dense(d2 * A, A)}
     enc = {"embed": embed, "after_norm": norm(),
-           **{f"layer_{i}": block(cfg.eunits, False) for i in range(cfg.elayers)}}
+           **{f"layer_{i}": enc_block() for i in range(cfg.elayers)}}
     dec = {"embed": {"embedding": normal(cfg.vocab_size, A, fan=A)}, "after_norm": norm(),
            "output": dense(A, cfg.vocab_size),
            **{f"layer_{i}": block(cfg.dunits, True) for i in range(cfg.dlayers)}}
@@ -1546,6 +1609,376 @@ def ctc_only_check(e2e):
         f"{[len(h) for h in hyps]}, no blank in any")
 
 
+def mfcc_phase(x, lens, rng, dev, tmp):
+    """Phase 10 (a): the MFCC hybrid recipe at wsj_hybrid
+    (recipes/configs/wsj_hybrid.json) on phase 3's utterances: the featgen
+    CLIs on the card and on the CPU, --profile_dir, egs with per-utterance
+    CMVN and context 4 recorded, train_am.main --arch rnn at full width.
+    The MFCC path runs no K1."""
+    from scipy.io.wavfile import write as wav_write
+
+    from speech_recognition_tools_tpu_torch.cli import (
+        compute_mel_spectrum,
+        compute_mfcc,
+        train_am,
+    )
+    from speech_recognition_tools_tpu_torch.dsp.mfcc import MfccConfig, mfcc_batch
+    from speech_recognition_tools_tpu_torch.io.egs import build_egs, iter_egs_batches
+    from speech_recognition_tools_tpu_torch.io.kaldi_ark import read_ark
+    from speech_recognition_tools_tpu_torch.models.recurrent import RNNClassifier
+    from speech_recognition_tools_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    srate = MFCC_FLAGS["srate"]
+    wav_dir = os.path.join(tmp, "mfcc_wavs")
+    os.makedirs(wav_dir)
+    scp = os.path.join(tmp, "mfcc_wav.scp")
+    with open(scp, "w") as fh:
+        for b, n in enumerate(lens):
+            path = os.path.join(wav_dir, f"utt{b:02d}.wav")
+            wav_write(path, srate, np.round(x[b, :n]).astype(np.int16))
+            fh.write(f"utt{b:02d} {path}\n")
+    audio_s = float(lens.sum()) / srate
+    mfcc_flags = [a for k, v in MFCC_FLAGS.items() for a in (f"--{k}", str(v))]
+
+    def cli(mod, name, device, extra=()):
+        out = os.path.join(tmp, f"{name}_{device}")
+        t, _ = _synced(lambda: mod.main([scp, out, *extra, "--write_utt2num_frames",
+                                         "--device", str(device)]))
+        return t, dict(read_ark(out + ".ark"))
+
+    parts = {}
+    for name, mod, extra in (("mfcc", compute_mfcc, mfcc_flags),
+                             ("melspec", compute_mel_spectrum, ())):
+        cli(mod, name, dev, extra)  # cuFFT plans and first launches
+        t_card, card = cli(mod, name, dev, extra)
+        t_cpu, cpu = cli(mod, name, "cpu", extra)
+        assert sorted(card) == sorted(cpu) and len(card) == len(lens)
+        err = 0.0
+        for k in cpu:
+            assert card[k].shape == cpu[k].shape and np.isfinite(card[k]).all(), k
+            assert np.allclose(card[k], cpu[k], **MFCC_TOL), (name, k)
+            err = max(err, float(np.abs(card[k] - cpu[k]).max()))
+        parts[name] = (t_card, t_cpu, err, card)
+    mfcc = parts["mfcc"][3]
+    assert mfcc["utt00"].shape[1] == 13
+    cfg = MfccConfig(**MFCC_FLAGS)
+    t_batch, _ = wall_s(lambda: mfcc_batch(x, lens, cfg, device=dev))
+    dev_ms = cuda_ms(lambda: mfcc_batch(x, lens, cfg, device=dev), reps=5)
+    prof = device_breakdown(f"mfcc_batch, {len(lens)} utterances",
+                            lambda: mfcc_batch(x, lens, cfg, device=dev))
+    prof_dir = os.path.join(tmp, "mfcc_profile")
+    compute_mfcc.main([scp, os.path.join(tmp, "mfcc_prof"), *mfcc_flags, "--profile_dir",
+                       prof_dir, "--device", str(dev)])
+    traces = [f for f in os.listdir(prof_dir) if f.endswith(".json")]
+    assert traces, f"--profile_dir wrote no trace: {os.listdir(prof_dir)}"
+    trace_mb = os.path.getsize(os.path.join(prof_dir, traces[0])) / 2**20
+
+    # egs as run_corpus.py:654-658 builds them: per-utterance CMVN, context 4
+    egs, store = os.path.join(tmp, "mfcc_egs"), os.path.join(tmp, "mfcc_am")
+    utts, labels = [], {}
+    for k, v in sorted(mfcc.items()):
+        sd = v.std(0)
+        v = (v - v.mean(0)) / np.where(sd == 0, 1.0, sd)
+        for c in range(MFCC_COPIES):
+            utts.append((f"{k}c{c}", v))
+            labels[f"{k}c{c}"] = rng.randint(0, MFCC_CLASSES, v.shape[0])
+    build_egs(iter(utts), egs, labels, context=MFCC_CONTEXT, num_targets=MFCC_CLASSES)
+    with open(os.path.join(egs, "egs.config")) as fh:
+        assert json.load(fh)["context"] == MFCC_CONTEXT
+    H = MFCC_TRAIN
+    argv = [egs, store, "--arch", "rnn", "--device", str(dev)]
+    argv += [a for k, v in H.items() for a in (f"--{k}", str(v))]
+    t_train, st = _synced(lambda: train_am.main(argv))
+    assert len(st.history) == H["epochs"] and all(
+        np.isfinite(h["train_loss"]) for h in st.history), st.history
+    assert "final" in os.listdir(store), os.listdir(store)
+
+    # one step card against CPU on the same weights: the 4 shortest
+    # utterances, cut to their first MFCC_STEP_FRAMES frames
+    args = train_am.get_parser().parse_args(argv)
+    loss_fn = train_am.make_loss(args)
+    def cut(b):
+        return dict(b, feats=b["feats"][:, :MFCC_STEP_FRAMES],
+                    labels=b["labels"][:, :MFCC_STEP_FRAMES],
+                    lengths=np.minimum(b["lengths"], MFCC_STEP_FRAMES))
+
+    small = cut(next(iter_egs_batches(egs, 4)))
+    step = {}
+    for device in ("cpu", dev):
+        m = RNNClassifier(13, H["num_layers"], H["hidden_dim"], MFCC_CLASSES, device=device)
+        m.reset_parameters(torch.Generator().manual_seed(5))
+        tr = Trainer(m, loss_fn, TrainConfig(learning_rate=H["learning_rate"]))
+        st1 = tr.init_state()
+        batch = {k: torch.as_tensor(v, device=device) for k, v in small.items() if k != "keys"}
+        loss, _, gnorm = tr.train_step(st1, batch)
+        step[str(device)] = (loss.item(), gnorm)
+    (l_c, g_c), (l_g, g_g) = step["cpu"], step[str(dev)]
+    assert _rel(l_g, l_c) <= 1e-5, (l_g, l_c)
+    batch64 = next(iter_egs_batches(egs, H["batch_size"]))
+    full = {k: torch.as_tensor(v, device=dev) for k, v in batch64.items() if k != "keys"}
+    short = {k: torch.as_tensor(v, device=dev) for k, v in cut(batch64).items() if k != "keys"}
+    t_step, _ = _synced(lambda: tr.train_step(st1, full))
+    step_prof = device_breakdown(
+        f"wsj_hybrid train step (B={H['batch_size']}, {MFCC_STEP_FRAMES} frames)",
+        lambda: tr.train_step(st1, short))
+    busy = "not measured" if prof is None else (
+        f"device busy {prof[1] / 1e3:.2f} ms of {prof[0] / 1e3:.2f} ms profiled "
+        f"({100 * prof[1] / prof[0]:.1f}%)")
+    for name, (t_card, t_cpu, err, _) in parts.items():
+        log(f"[mfcc] {name} CLI, {len(lens)} wavs ({audio_s:.1f} s audio): card {t_card:.3f} s = "
+            f"{audio_s / t_card:.1f}x real time (second call), cpu {t_cpu:.3f} s; max|card - "
+            f"cpu| {err:.3e} (rtol {MFCC_TOL['rtol']}, atol {MFCC_TOL['atol']})")
+    log(f"[mfcc] mfcc_batch alone (wsj_hybrid, {len(lens)} x {lens.min() / srate:.1f}-"
+        f"{lens.max() / srate:.1f} s): {t_batch * 1e3:.2f} ms wall = {audio_s / t_batch:.1f}x "
+        f"real time, {dev_ms:.2f} ms by CUDA events (host copy included); {busy}; "
+        f"--profile_dir trace {traces[0]} ({trace_mb:.1f} MiB)")
+    sbusy = "not measured" if step_prof is None else (
+        f"at {MFCC_STEP_FRAMES} frames {step_prof[0] / 1e3:.1f} ms profiled, "
+        f"{100 * step_prof[1] / step_prof[0]:.1f}% busy, {step_prof[2]} device activities")
+    log(f"[mfcc-train] wsj_hybrid: egs of {len(utts)} utterances (per-utterance CMVN, context "
+        f"{MFCC_CONTEXT} recorded) -> train_am.main --arch rnn {H['num_layers']} x "
+        f"{H['hidden_dim']} GRU, 13 features, {MFCC_CLASSES} classes, batch {H['batch_size']}, "
+        f"1 epoch: {t_train:.2f} s, loss {st.history[0]['train_loss']:.4f}; card vs cpu one "
+        f"step on 4 utterances x {MFCC_STEP_FRAMES} frames: loss {l_g:.6f} / {l_c:.6f} "
+        f"(rel {_rel(l_g, l_c):.3e}, limit "
+        f"1e-5), grad norm rel {_rel(g_g, g_c):.3e}; B={H['batch_size']} step "
+        f"({int(full['feats'].shape[1])} frames padded) {t_step * 1e3:.1f} ms wall; {sbusy}; "
+        f"phase 10 (a) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def conformer_phase(x, lens, fdlp_cfg, feats, nfr, rng, dev, tmp):
+    """Phase 10 (b): the conformer of wsj_fdlp_conformer_e2e on phase 3's
+    batch (`feats`, `nfr`: its K1 features): recognition through
+    recognize_batch, training through train_e2e.main on phase 7's egs and
+    recog_e2e.main on the checkpoint, and streaming with attn_chunk 16 from
+    a model directory. Returns K1's launches over (recognize_batch, the
+    OnlineASRPipeline streams)."""
+    import string
+
+    from speech_recognition_tools_tpu_torch.cli import recog_e2e, train_e2e
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import (
+        beam_search_encoded,
+        tokens_to_list,
+    )
+    from speech_recognition_tools_tpu_torch.dsp.fdlp import FdlpConfig, fdlp_spectrogram_batch
+    from speech_recognition_tools_tpu_torch.dsp.streaming import StreamingFdlp
+    from speech_recognition_tools_tpu_torch.infer.recognize import recognize_batch
+    from speech_recognition_tools_tpu_torch.infer.streaming_asr import (
+        OnlineASRPipeline,
+        StreamBatcher,
+        StreamingRecognizer,
+    )
+    from speech_recognition_tools_tpu_torch.io.egs import build_egs
+    from speech_recognition_tools_tpu_torch.io.jax_params import (
+        rnnlm_from_jax,
+        transformer_asr_from_jax,
+    )
+    from speech_recognition_tools_tpu_torch.io.text import (
+        build_char_vocab,
+        decode_tokens,
+        save_vocab,
+    )
+    from speech_recognition_tools_tpu_torch.models.rnnlm import RNNLM
+    from speech_recognition_tools_tpu_torch.models.transformer_asr import (
+        ConformerBlock,
+        TransformerASR,
+        TransformerASRConfig,
+    )
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import lpc_cepstra
+    from speech_recognition_tools_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from speech_recognition_tools_tpu_torch.utils.cmvn import apply_cmvn, cmvn_stats_masked
+
+    t_phase = time.perf_counter()
+    cfg = TransformerASRConfig(**CONF_AM)
+    idim, V, eos = fdlp_cfg.nfilters, cfg.vocab_size, cfg.eos_id
+    params = random_asr_params(rng, cfg, idim)
+    lm_params = random_rnnlm_params(rng, V, cfg.adim, E2E_LM_HIDDEN)
+
+    def build(device, c=cfg):
+        asr = TransformerASR(c, idim, device=device)
+        asr.load_state_dict(transformer_asr_from_jax(params))
+        lm = RNNLM(V, cfg.adim, E2E_LM_HIDDEN, 1, device=device)
+        lm.load_state_dict(rnnlm_from_jax(lm_params))
+        return asr.eval(), lm.eval()
+
+    asr, lm = build(dev)
+    assert all(isinstance(m, ConformerBlock) for m in asr.encoder.layers)
+    vocab = build_char_vocab([string.ascii_letters[: V - 4]])
+    mean, std = cmvn_stats_masked(feats, nfr)
+    B = len(lens)
+    audio_s = float(lens.sum()) / fdlp_cfg.srate
+
+    def front(c):
+        f, n = fdlp_spectrogram_batch(x, lens, c, device=dev)
+        return apply_cmvn(f, mean, std), n
+
+    def encode(f, n, model=asr):
+        with torch.no_grad():
+            return model.encode(f, n)
+
+    def search(mem, enc_len, ctc):
+        with torch.no_grad():
+            return beam_search_encoded(asr, mem, enc_len, ctc, lm=lm, max_len=CONF_MAX_LEN,
+                                       **E2E_BEAM)
+
+    # the main path, counted, through the entry point a user calls
+    lpc_cepstra.launches = 0
+    t_first, texts = _synced(lambda: recognize_batch(
+        x, lens, fdlp_cfg, mean, std, asr, vocab, lm=lm, **E2E_BEAM, max_len=CONF_MAX_LEN,
+        device=dev))
+    launches = lpc_cepstra.launches
+    assert launches > 0, "the conformer path did not launch K1"
+    t_front, (f, n) = wall_s(lambda: front(fdlp_cfg))
+    t_enc, (mem, enc_len, ctc) = wall_s(lambda: encode(f, n))
+    t_beam, (toks, scores) = wall_s(lambda: search(mem, enc_len, ctc), repeats=1)
+    hyps = [tokens_to_list(toks[b], scores[b], eos) for b in range(B)]
+    assert texts == [decode_tokens(h, vocab) for h in hyps], "recognize_batch != its parts"
+    assert torch.isfinite(scores).all() and torch.isfinite(valid_rows(mem, enc_len)).all()
+    steps = int((toks[0, 0] >= 0).sum()) - 1
+    f_s, n_s = front(FdlpConfig(**{**fdlp_cfg.__dict__, "lpc_backend": "scan"}))
+    assert torch.equal(n, n_s)
+    _, _, ctc_s = encode(f_s, n_s)
+    ctc_err = (valid_rows(torch.log_softmax(ctc, -1), enc_len)
+               - valid_rows(torch.log_softmax(ctc_s, -1), enc_len)).abs().max().item()
+    assert ctc_err <= E2E_CTC_TOL, ctc_err
+    cpu_asr, _ = build("cpu")
+    two = n[:2].cpu()
+    f2 = f[:2, : int(two.max())]
+    m_c, l_c, c_c = encode(f2.cpu(), two, model=cpu_asr)
+    m_g, l_g, c_g = encode(f2, n[:2])
+    assert torch.equal(l_g.cpu(), l_c)
+    enc_err = max((valid_rows(g.cpu(), l_c) - valid_rows(c, l_c)).abs().max().item()
+                  for g, c in ((m_g, m_c), (c_g, c_c)))
+    assert enc_err < 1e-4, enc_err
+    prof = device_breakdown("conformer encoder batch", lambda: encode(f, n))
+    busy = "not measured" if prof is None else (
+        f"device busy {prof[1] / 1e3:.2f} ms of {prof[0] / 1e3:.2f} ms profiled "
+        f"({100 * prof[1] / prof[0]:.1f}%), {prof[2]} device activities")
+    total = t_front + t_enc + t_beam
+    log(f"[conformer] wsj_fdlp_conformer_e2e {B} x {lens.min() / 16000:.1f}-"
+        f"{lens.max() / 16000:.1f} s ({audio_s:.1f} s audio), {cfg.elayers} conformer layers "
+        f"(conv_kernel {cfg.conv_kernel}) / {cfg.dlayers} decoder, beam "
+        f"{E2E_BEAM['beam_size']}, RNNLM 1 x {E2E_LM_HIDDEN}, max_len {CONF_MAX_LEN}: K1 "
+        f"launches {launches}; first recognize_batch {t_first:.2f} s; per batch front-end "
+        f"{t_front * 1e3:.2f} ms, encoder {t_enc * 1e3:.2f} ms ({busy}), beam search "
+        f"{t_beam * 1e3:.1f} ms ({steps} steps); total {total * 1e3:.1f} ms = "
+        f"{audio_s / total:.1f}x real time")
+    log(f"[conformer] max|CTC logp(K1) - CTC logp(plain)| {ctc_err:.3e} (limit "
+        f"{E2E_CTC_TOL}); encoder cuda vs cpu max|err| {enc_err:.3e} (atol 1e-4)")
+
+    # training: train_e2e.main --encoder_type conformer on phase 7's egs
+    egs7, text7 = os.path.join(tmp, "e2e_egs"), os.path.join(tmp, "e2e_text")
+    store = os.path.join(tmp, "conf_am")
+    argv = [egs7, text7, store, "--device", str(dev)]
+    argv += [a for k, v in {**CONF_AM, **CONF_TRAIN}.items() if k != "vocab_size"
+             for a in (f"--{k}", str(v))]
+    t_train, losses = _synced(lambda: train_e2e.main(argv))
+    assert len(losses) == CONF_TRAIN["epochs"] and all(np.isfinite(losses)), losses
+    _, meta = load_checkpoint(os.path.join(store, "final_avg"))
+    assert meta["encoder_type"] == "conformer" and meta["conv_kernel"] == cfg.conv_kernel
+    egs4 = os.path.join(tmp, "conf_egs4")
+    mean_np, std_np = mean.cpu().numpy(), std.cpu().numpy()
+    build_egs(((f"utt{b}", feats[b, : int(nfr[b])].cpu().numpy()) for b in range(4)), egs4,
+              cmvn=(mean_np, std_np))
+    t_recog, rec = _synced(lambda: recog_e2e.main(
+        [store, egs4, os.path.join(tmp, "conf_hyp"), "--jit_decode", "--batch_size", "4",
+         "--max_len", str(CONF_MAX_LEN), "--device", str(dev)]))
+    assert sorted(rec) == [f"utt{b}" for b in range(4)], rec
+    log(f"[conformer-train] train_e2e.main --encoder_type conformer --conv_kernel "
+        f"{cfg.conv_kernel} at full width, 1 epoch of 2 batches of {CONF_TRAIN['batch_size']}: "
+        f"{t_train:.2f} s, loss {losses[0]:.4f}; final_avg -> recog_e2e.main on 4 utterances "
+        f"(beam 10, max_len {CONF_MAX_LEN}): {t_recog:.2f} s, {rec['utt0'][:40]!r}")
+
+    # streaming: a model directory with the recipes' streaming setting
+    scfg = TransformerASRConfig(**CONF_AM, **SERVE_CHUNK)
+    sparams = {"params": {**params["params"], "ctc_head": {
+        "kernel": params["params"]["ctc_head"]["kernel"],
+        "bias": params["params"]["ctc_head"]["bias"].copy()}}}
+    sparams["params"]["ctc_head"]["bias"][scfg.blank_id] += SERVE_BLANK_BIAS
+    model_dir = os.path.join(tmp, "conf_stream")
+    save_checkpoint(model_dir, "final_avg", sparams, dict(
+        model_class="TransformerASR", **CONF_AM, **SERVE_CHUNK, mtlalpha=0.3, lsm_weight=0.1,
+        feature_dim=idim))
+    save_vocab(vocab, os.path.join(model_dir, "vocab.json"))
+    np.savez(os.path.join(model_dir, "cmvn.npz"), mean=mean_np, std=std_np)
+    frontend = {k: getattr(fdlp_cfg, k) for k in ("srate", "nfilters", "coeff_num",
+                                                  "coeff_range", "order", "fduration")}
+    with open(os.path.join(model_dir, "serving.json"), "w") as fh:
+        json.dump({"frontend": {"type": "fdlp", **frontend}, "cmvn": "cmvn.npz",
+                   "cmvn_mode": "global"}, fh)
+    pipe = OnlineASRPipeline.from_model_dir(model_dir, device=dev)
+    smodel, _, _ = recog_e2e._load(model_dir, "final_avg", device=dev)
+    assert smodel.cfg.encoder_type == "conformer" and smodel.cfg.attn_chunk == scfg.attn_chunk
+    mem_err = 0.0
+    for b in range(2):
+        fb = ((feats[b, : int(nfr[b])] - mean) / std).cpu().numpy()
+        sr = StreamingRecognizer(smodel)
+        for off in range(0, fb.shape[0], 25):
+            sr.push(fb[off : off + 25])
+        sr.finish()
+        with torch.no_grad():
+            m, ln, _ = smodel.encode(torch.as_tensor(fb[None], device=dev),
+                                     torch.tensor([fb.shape[0]], device=dev))
+        assert sr.enc_len == int(ln[0])
+        mem_err = max(mem_err, float(np.abs(sr.memory - m[0, : sr.enc_len].cpu().numpy()).max()))
+    assert mem_err <= SERVE_MEM_ATOL, mem_err
+
+    # CONF_STREAMS streams through CONF_SLOTS rows: the first finishes, the
+    # last takes its row; each final against OnlineASRPipeline on its audio
+    step = int(SERVE_PUSH_S * fdlp_cfg.srate)
+    sigs = [x[b, : int(lens[b])] for b in range(CONF_STREAMS)]
+    lpc_cepstra.launches = 0
+    want, rows = [], []
+    for sig in sigs:
+        tok, ctc_rows = _pipeline_run(pipe, sig, step)
+        want.append(tok)
+        rows.append(ctc_rows)
+    stream_launches = lpc_cepstra.launches
+    assert stream_launches > 0, "the conformer stream did not launch K1"
+    sfeats = []
+    for sig in sigs:
+        sf = StreamingFdlp(fdlp_cfg, device=dev)
+        outs = [sf.process(sig[off : off + step]) for off in range(0, len(sig), step)]
+        outs.append(sf.finish())
+        sfeats.append((np.concatenate(outs) - mean_np) / std_np)
+    sb = StreamBatcher(smodel, max_streams=CONF_SLOTS)
+    sids = [sb.open() for _ in range(CONF_SLOTS)]
+    sb.push(sids[0], sfeats[0])
+    first_slot = sb.state(sids[0]).slot
+    got = {0: sb.finish(sids[0])}
+    sids.append(sb.open())
+    assert sb.state(sids[-1]).slot == first_slot, "the freed row was not reused"
+    t_rounds = time.perf_counter()
+    offs = [0] * CONF_STREAMS
+    while any(offs[i] < len(sfeats[i]) for i in range(1, CONF_STREAMS)):
+        for i in range(1, CONF_STREAMS):
+            if offs[i] < len(sfeats[i]):
+                sb.push(sids[i], sfeats[i][offs[i] : offs[i] + 25])
+                offs[i] += 25
+    for i in range(1, CONF_STREAMS):
+        got[i] = sb.finish(sids[i])
+    torch.cuda.synchronize()
+    t_rounds = time.perf_counter() - t_rounds
+    mismatched = 0
+    for i in range(CONF_STREAMS):
+        if got[i] != want[i]:
+            mismatched += 1
+            assert _ctc_near_ties(rows[i]) > 0, (i, got[i], want[i])
+    log(f"[conformer-stream] attn_chunk {scfg.attn_chunk} left {scfg.attn_left_chunks}, "
+        f"causal conv tail {scfg.conv_kernel - 1}: streamed vs offline chunked memory max|err| "
+        f"{mem_err:.3e} (atol {SERVE_MEM_ATOL}); {CONF_STREAMS} streams through "
+        f"{CONF_SLOTS} rows (one reused): {CONF_STREAMS - mismatched} of {CONF_STREAMS} finals "
+        f"token-identical to OnlineASRPipeline ({mismatched} at CTC near-ties), "
+        f"{sb.rounds} rounds in {t_rounds:.2f} s; K1 launches over the pipeline streams "
+        f"{stream_launches}; phase 10 (b) took {time.perf_counter() - t_phase:.1f} s")
+    return launches, stream_launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1804,8 +2237,14 @@ def main():
         decode_launches = hybrid_decode_phase(rng, dev, tmp)
         ctc_only_check(e2e_model)
         log(f"[phase9] {time.perf_counter() - t9:.2f} s")
+        # ---- 10. the MFCC hybrid front-end and the conformer ----
+        t10 = time.perf_counter()
+        mfcc_phase(x, lens, rng, dev, tmp)
+        conf_launches, conf_stream_launches = conformer_phase(x, lens, e2e, fa, na, rng, dev,
+                                                              tmp)
+        log(f"[phase10] {time.perf_counter() - t10:.2f} s")
 
-    # ---- 10. every kernel of the port ----
+    # ---- 11. every kernel of the port ----
     log(json.dumps({"kernels": [{
         "name": "lpc_cepstra",
         "route": "cuda",
@@ -1816,7 +2255,9 @@ def main():
                              "e2e": e2e_launches, "hybrid_train": hybrid_train_launches,
                              "e2e_train": e2e_train_launches, "serve": serve_launches,
                              "transcribe": transcribe_launches,
-                             "hybrid_decode": decode_launches},
+                             "hybrid_decode": decode_launches,
+                             "conformer_e2e": conf_launches,
+                             "conformer_stream": conf_stream_launches},
         "max_abs_err": main_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -1827,8 +2268,11 @@ def main():
     }]}))
 
     log(f"[run] {time.perf_counter() - t_run:.1f} s from start to the contract line")
+    # the card again, so that the end of the output (all a caller may keep)
+    # names the card and its power limit beside the numbers above
+    log(smi)
 
-    # ---- 11. contract line ----
+    # ---- 12. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Shared CLI machinery: scp -> padded wav batches -> featgen -> ark.
 
-Port of the parts of speech_recognition_tools_tpu/cli/common.py that the
-FDLP featgen CLI needs: `load_signals` (wav and segments scp, without the
-noise / reverb augmentation, which is not yet ported), `run_batched`
-(length-bucketed batches, without data parallelism) and `finish`.
+Port of speech_recognition_tools_tpu/cli/common.py for the featgen CLIs
+(FDLP, MFCC, mel): `load_signals` (wav and segments scp), `run_batched`
+(length-bucketed batches, feeding a ThroughputMeter), `finish`, and the
+shared `--profile_dir` flag (`add_profiling_arg`, `profiled_extraction`).
+The noise / reverb augmentation and data parallelism are not yet ported:
+`check_unported` raises on their flags.
 """
 
 import sys
@@ -13,6 +15,26 @@ import numpy as np
 from speech_recognition_tools_tpu_torch.io.kaldi_ark import write_ark_scp
 from speech_recognition_tools_tpu_torch.io.scp import read_scp, read_segments
 from speech_recognition_tools_tpu_torch.io.wav import read_wav_scp_entry
+
+
+AUGMENT_ITEM = ("ROADMAP Queue 1 item 9: enhancement, augmentation, evaluation and "
+                "alignment (dsp/augment.py, dsp/simulate.py)")
+PARALLEL_ITEM = "ROADMAP Queue 1 item 10: the parallel paths"
+
+
+def check_unported(args):
+    """Raise NotImplementedError, naming the ROADMAP item, for a featgen
+    flag whose module is not yet ported: --add_noise other than none /
+    clean, --add_reverb other than clean, --data_parallel. (`clean` adds
+    nothing in the JAX CLIs either.)"""
+    if getattr(args, "add_noise", None) not in (None, "none", "clean"):
+        raise NotImplementedError(f"--add_noise {args.add_noise} is not yet ported "
+                                  f"({AUGMENT_ITEM})")
+    if getattr(args, "add_reverb", None) not in (None, "clean"):
+        raise NotImplementedError(f"--add_reverb {args.add_reverb} is not yet ported "
+                                  f"({AUGMENT_ITEM})")
+    if getattr(args, "data_parallel", False):
+        raise NotImplementedError(f"--data_parallel is not yet ported ({PARALLEL_ITEM})")
 
 
 def load_signals(args, srate):
@@ -50,11 +72,14 @@ def load_signals(args, srate):
     return raw
 
 
-def run_batched(signals, batch_fn, batch_size=32, bucket_multiple=16000):
+def run_batched(signals, batch_fn, batch_size=32, bucket_multiple=16000, meter=None,
+                srate=None):
     """Bucket signals by length and run the featgen per batch.
 
     batch_fn(padded (B, Nmax) float32, lens (B,) int32) ->
     (feats (B, T, D), nframes (B,)). Returns {utt: (T_i, D) float32}.
+    `meter` (a ThroughputMeter) counts each batch's utterances and, given
+    `srate`, its audio seconds, after its features reached the host.
     """
     order = np.argsort([len(s) for _, s in signals], kind="stable")
     signals = [signals[i] for i in order]
@@ -73,10 +98,13 @@ def run_batched(signals, batch_fn, batch_size=32, bucket_multiple=16000):
         nframes = nframes.detach().cpu().numpy()
         for j, (key, _) in enumerate(group):
             feats[key] = out[j, : int(nframes[j])]
+        if meter is not None:
+            meter.update(items=len(group),
+                         audio_seconds=float(lens.sum()) / srate if srate else 0.0)
     return feats
 
 
-def finish(args, feats, lens_attr="write_utt2num_frames"):
+def finish(args, feats, lens_attr="write_utt2num_frames", meter=None):
     """Write ark/scp (+ optional .len) like the reference CLIs."""
     write_ark_scp(feats, args.outfile)
     if getattr(args, lens_attr.replace("-", "_"), False):
@@ -84,3 +112,26 @@ def finish(args, feats, lens_attr="write_utt2num_frames"):
             for key, mat in feats.items():
                 f.write(f"{key} {mat.shape[0]}\n")
     print(f"{sys.argv[0]}: wrote {len(feats)} utterances -> {args.outfile}.ark")
+    if meter is not None:
+        print(f"{sys.argv[0]}: {meter.summary()}")
+
+
+def add_profiling_arg(parser):
+    """The --profile_dir flag the featgen CLIs share."""
+    parser.add_argument("--profile_dir",
+                        help="capture a torch.profiler trace (Chrome trace JSON) of "
+                             "the extraction into this dir")
+    return parser
+
+
+def profiled_extraction(args, device):
+    """(context manager, ThroughputMeter) of a featgen CLI: the context
+    traces the extraction on `device` into --profile_dir when given
+    (utils/profiling.py::trace), else does nothing."""
+    import contextlib
+
+    from speech_recognition_tools_tpu_torch.utils.profiling import ThroughputMeter, trace
+
+    profile_dir = getattr(args, "profile_dir", None)
+    ctx = trace(profile_dir, device) if profile_dir else contextlib.nullcontext()
+    return ctx, ThroughputMeter()

@@ -5,9 +5,10 @@ computeFDLPSpectrogram.py :240-262), running the port on the card.
     python -m speech_recognition_tools_tpu_torch.cli.compute_fdlp_spectrogram \
         wav.scp out/feats [--nfilters 80 --order 150 ...] [--device cpu]
 
-Flags whose modules are not yet ported (--add_noise, --add_reverb,
---data_parallel, --precision high/mixed, --profile_dir) raise
-NotImplementedError.
+--profile_dir traces the extraction with torch.profiler. Flags whose
+modules are not yet ported (--add_noise other than none / clean,
+--add_reverb, --data_parallel, --precision high/mixed) raise
+NotImplementedError naming their ROADMAP item.
 """
 
 import argparse
@@ -36,7 +37,7 @@ def get_parser():
     parser.add_argument("--gamma_weight", type=str, default="None")
     parser.add_argument("--lifter_config", type=str, default=None)
     parser.add_argument("--write_utt2num_frames", action="store_true")
-    parser.add_argument("--add_noise", help="not yet ported")
+    parser.add_argument("--add_noise", help="only none / clean are ported")
     parser.add_argument("--srate", type=int, default=16000)
     parser.add_argument("--batch_size", type=int, default=32)
     parser.add_argument("--bucket_seconds", type=float, default=1.0,
@@ -51,35 +52,32 @@ def get_parser():
                         help="enable the reference's +-1 frame OLA jitter "
                              "(drawn from a torch.Generator seeded 0, so "
                              "its bits differ from the JAX CLI's)")
-    parser.add_argument("--profile_dir", help="not yet ported")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default) or 'cpu'")
+    from speech_recognition_tools_tpu_torch.cli.common import add_profiling_arg
+
+    add_profiling_arg(parser)
     return parser
 
 
-_UNPORTED = {
-    "add_noise": "--add_noise", "add_reverb": "--add_reverb",
-    "data_parallel": "--data_parallel", "profile_dir": "--profile_dir",
-}
-
-
 def main(argv=None):
+    from speech_recognition_tools_tpu_torch.cli.common import (
+        check_unported,
+        finish,
+        load_signals,
+        profiled_extraction,
+        run_batched,
+    )
+
     args = get_parser().parse_args(argv)
-    for attr, flag in _UNPORTED.items():
-        if getattr(args, attr):
-            raise NotImplementedError(f"{flag} is not yet ported")
+    check_unported(args)
     if args.precision != "fast":
-        raise NotImplementedError(f"--precision {args.precision} is not yet ported")
+        raise NotImplementedError(f"--precision {args.precision} is not yet ported "
+                                  "(ROADMAP Queue 1 item 1: precision='high')")
     start = time.time()
     print(f"{sys.argv[0]}: Extracting features....")
 
     import torch
-
-    from speech_recognition_tools_tpu_torch.cli.common import (
-        finish,
-        load_signals,
-        run_batched,
-    )
     from speech_recognition_tools_tpu_torch.device import resolve_device
     from speech_recognition_tools_tpu_torch.dsp.fdlp import (
         FdlpConfig,
@@ -115,9 +113,12 @@ def main(argv=None):
         return fdlp_spectrogram_batch(batch, lens, cfg, jitter=jitter,
                                       device=device)
 
-    feats = run_batched(signals, batch_fn, batch_size=args.batch_size,
-                        bucket_multiple=int(args.bucket_seconds * args.srate))
-    finish(args, feats)
+    ctx, meter = profiled_extraction(args, device)
+    with ctx:
+        feats = run_batched(signals, batch_fn, batch_size=args.batch_size,
+                            bucket_multiple=int(args.bucket_seconds * args.srate),
+                            meter=meter, srate=args.srate)
+    finish(args, feats, meter=meter)
     print(f"Execution Time: {time.time() - start:.3f} seconds")
 
 

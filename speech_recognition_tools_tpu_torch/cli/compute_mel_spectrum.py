@@ -1,0 +1,73 @@
+"""Mel spectrum CLI: the flags of
+speech_recognition_tools_tpu/cli/compute_mel_spectrum.py (reference
+computeMelSpectrum.py :20-37), running the port on the card.
+
+    python -m speech_recognition_tools_tpu_torch.cli.compute_mel_spectrum \\
+        wav.scp out/feats [--spectrum_type log --fbank_type mel,1 ...] \\
+        [--scp_type segment --wav_scp wav.scp] [--device cpu]
+
+--add_noise (other than none / clean), --add_reverb and --data_parallel
+raise NotImplementedError naming their ROADMAP item.
+"""
+
+import argparse
+import time
+
+
+def get_parser():
+    parser = argparse.ArgumentParser("Extract Mel Energy Features")
+    parser.add_argument("scp")
+    parser.add_argument("outfile")
+    parser.add_argument("--scp_type", default="wav")
+    parser.add_argument("--wav_scp", help="recording wav scp for --scp_type segment")
+    parser.add_argument("--spectrum_type", default="log", help="log/power")
+    parser.add_argument("--nfilters", type=int, default=23)
+    parser.add_argument("--fduration", type=float, default=0.02)
+    parser.add_argument("--frate", type=int, default=100)
+    parser.add_argument("--nfft", type=int, default=1024)
+    parser.add_argument("--add_reverb", help="not yet ported")
+    parser.add_argument("--fbank_type", type=str, default="mel,1")
+    parser.add_argument("--write_utt2num_frames", action="store_true")
+    parser.add_argument("--add_noise", help="only none / clean are ported")
+    parser.add_argument("--srate", type=int, default=16000)
+    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("--data_parallel", action="store_true", help="not yet ported")
+    parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    from speech_recognition_tools_tpu_torch.cli.common import add_profiling_arg
+
+    add_profiling_arg(parser)
+    return parser
+
+
+def main(argv=None):
+    from speech_recognition_tools_tpu_torch.cli.common import (
+        check_unported,
+        finish,
+        load_signals,
+        profiled_extraction,
+        run_batched,
+    )
+
+    args = get_parser().parse_args(argv)
+    check_unported(args)
+    start = time.time()
+
+    from speech_recognition_tools_tpu_torch.device import resolve_device
+    from speech_recognition_tools_tpu_torch.dsp.melspec import MelConfig, mel_spectrum_batch
+
+    device = resolve_device(args.device)
+    cfg = MelConfig(srate=args.srate, nfilters=args.nfilters, fduration=args.fduration,
+                    frate=args.frate, nfft=args.nfft, spectrum_type=args.spectrum_type,
+                    fbank_type=args.fbank_type)
+    signals = load_signals(args, args.srate)
+    ctx, meter = profiled_extraction(args, device)
+    with ctx:
+        feats = run_batched(signals,
+                            lambda b, n: mel_spectrum_batch(b, n, cfg, device=device),
+                            batch_size=args.batch_size, meter=meter, srate=args.srate)
+    finish(args, feats, meter=meter)
+    print(f"Execution Time: {time.time() - start:.3f} seconds")
+
+
+if __name__ == "__main__":
+    main()

@@ -15,7 +15,8 @@ given.
 
 The host search and `--jit_decode` are one search here (the batched loop
 at batch 1 or `--batch_size`). Checkpoints are the JAX package's layout,
-read with train/checkpoint.py. `--api cl`, `--word_lm_dir`,
+read with train/checkpoint.py; the model's config.json gives its encoder
+(transformer, or conformer with its conv_kernel). `--api cl`, `--word_lm_dir`,
 `--ring_attention > 1` and `--compute_dtype bfloat16` raise
 NotImplementedError.
 """
@@ -108,6 +109,7 @@ def _load(model_dir, ckpt, compute_dtype="float32", attn_chunk=None,
         dunits=cfg_d["dunits"], dropout=0.0, mtlalpha=cfg_d["mtlalpha"],
         lsm_weight=cfg_d["lsm_weight"],
         encoder_type=cfg_d.get("encoder_type", "transformer"),
+        conv_kernel=cfg_d.get("conv_kernel", 15),
         attn_chunk=cfg_d.get("attn_chunk", 0) if attn_chunk is None else attn_chunk,
         attn_left_chunks=(cfg_d.get("attn_left_chunks", -1) if attn_left_chunks is None
                           else attn_left_chunks),
@@ -133,7 +135,8 @@ def main(argv=None):
     if args.ring_attention > 1:
         raise NotImplementedError("--ring_attention is not yet ported")
     if args.compute_dtype != "float32":
-        raise NotImplementedError(f"--compute_dtype {args.compute_dtype} is not yet ported")
+        raise NotImplementedError(f"--compute_dtype {args.compute_dtype} is not yet ported "
+                                  "(ROADMAP Queue 1 item 4: bf16 compute)")
 
     import torch
 

@@ -36,7 +36,8 @@ audio stream):
 
 Run:  python -m speech_recognition_tools_tpu_torch.cli.serve model_dir --port 8973
       [--fdlp flags] [--device cpu]
-`--int8` raises NotImplementedError.
+The model directory's config.json gives its encoder (transformer, or
+conformer with its conv_kernel). `--int8` raises NotImplementedError.
 """
 
 import argparse
@@ -293,7 +294,8 @@ def make_server(model_dir, ckpt="final_avg", host="127.0.0.1", port=0, max_strea
     `serving.json` supplies them (resolve_frontend). On a card the kernels
     are built here, before the first connection."""
     if int8:
-        raise NotImplementedError("int8 encoder weights (infer/quantize.py) are not yet ported")
+        raise NotImplementedError("int8 encoder weights (infer/quantize.py) are not yet ported "
+                                  "(ROADMAP Queue 1 item 8: int8 serving)")
     from speech_recognition_tools_tpu_torch.cli.recog_e2e import _load
     from speech_recognition_tools_tpu_torch.infer.streaming_asr import (
         load_manifest_cmvn,
@@ -319,7 +321,8 @@ def make_server(model_dir, ckpt="final_avg", host="127.0.0.1", port=0, max_strea
 def main(argv=None):
     args = get_parser().parse_args(argv)
     if args.int8:
-        raise NotImplementedError("--int8 (infer/quantize.py) is not yet ported")
+        raise NotImplementedError("--int8 (infer/quantize.py) is not yet ported "
+                                  "(ROADMAP Queue 1 item 8: int8 serving)")
     overrides = {k: getattr(args, k)
                  for k in ("srate", "nfilters", "fduration", "order", "coeff_num")}
     try:

@@ -14,9 +14,11 @@ is given.
     python -m speech_recognition_tools_tpu_torch.cli.train_e2e egs/ text exp/am \
         [--adim 256 ... --specaug] [--device cpu]
 
-`--data_parallel`, `--tensor_parallel`, `--pipeline_parallel`,
-`--encoder_type conformer` and `--compute_dtype bfloat16` raise
-NotImplementedError.
+`--encoder_type conformer --conv_kernel K` trains the conformer encoder
+(recipes/configs/wsj_fdlp_conformer_e2e.json); `config.json` records both.
+`--data_parallel`, `--tensor_parallel`, `--pipeline_parallel` and
+`--compute_dtype bfloat16` raise NotImplementedError naming their ROADMAP
+item.
 """
 
 import argparse
@@ -41,15 +43,14 @@ def get_parser():
     p.add_argument("--lsm_weight", type=float, default=0.1)
     p.add_argument("--dropout", type=float, default=0.1)
     p.add_argument("--encoder_type", default="transformer",
-                   choices=["transformer", "conformer"],
-                   help="only 'transformer' is ported")
+                   choices=["transformer", "conformer"])
     p.add_argument("--attn_chunk", type=int, default=0,
                    help="chunked encoder attention: chunk size in "
                         "post-subsampling frames (0 = full attention)")
     p.add_argument("--attn_left_chunks", type=int, default=-1,
                    help="left-context chunks each chunk may attend (-1 = unbounded)")
     p.add_argument("--conv_kernel", type=int, default=15,
-                   help="(conformer) recorded in the config only")
+                   help="conformer depthwise conv width")
     p.add_argument("--compute_dtype", default="float32",
                    choices=["float32", "bfloat16"], help="only 'float32' is ported")
     p.add_argument("--epochs", type=int, default=50)
@@ -181,11 +182,14 @@ def resolve_init_checkpoint(path):
 def main(argv=None):
     args = get_parser().parse_args(argv)
     if args.data_parallel:
-        raise NotImplementedError("--data_parallel is not yet ported")
+        raise NotImplementedError("--data_parallel is not yet ported (ROADMAP Queue 1 item 10: "
+                                  "the parallel paths)")
     if args.tensor_parallel > 1:
-        raise NotImplementedError("--tensor_parallel is not yet ported")
+        raise NotImplementedError("--tensor_parallel is not yet ported (ROADMAP Queue 1 item 10: "
+                                  "the parallel paths)")
     if args.pipeline_parallel > 1:
-        raise NotImplementedError("--pipeline_parallel is not yet ported")
+        raise NotImplementedError("--pipeline_parallel is not yet ported (ROADMAP Queue 1 item 10: "
+                                  "the parallel paths)")
 
     import torch
 
@@ -251,6 +255,7 @@ def main(argv=None):
         dunits=icfg.get("dunits", args.dunits),
         dropout=args.dropout, mtlalpha=args.mtlalpha, lsm_weight=args.lsm_weight,
         encoder_type=icfg.get("encoder_type", args.encoder_type),
+        conv_kernel=icfg.get("conv_kernel", args.conv_kernel),
         attn_chunk=args.attn_chunk, attn_left_chunks=args.attn_left_chunks,
         compute_dtype=args.compute_dtype,
     )
@@ -316,8 +321,7 @@ def main(argv=None):
     hyper.update(model_class="TransformerASR", vocab_size=len(vocab), feature_dim=feat_dim,
                  adim=cfg.adim, aheads=cfg.aheads, elayers=cfg.elayers,
                  eunits=cfg.eunits, dlayers=cfg.dlayers, dunits=cfg.dunits,
-                 encoder_type=cfg.encoder_type,
-                 conv_kernel=icfg.get("conv_kernel", args.conv_kernel))
+                 encoder_type=cfg.encoder_type, conv_kernel=cfg.conv_kernel)
 
     torch.manual_seed(args.seed + 2 + start_epoch)  # dropout draws
     gen = torch.Generator().manual_seed(args.seed + 3 + start_epoch)  # SpecAugment's

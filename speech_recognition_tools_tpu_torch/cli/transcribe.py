@@ -9,7 +9,8 @@ Streaming FDLP featgen (K1 on the card) -> global CMVN -> chunked-attention
 encoder -> greedy CTC, with optional endpointed segmentation, through
 infer/streaming_asr.py::OnlineASRPipeline in bounded memory
 (store_memory=False). The model dir describes itself through its
-serving.json (front-end geometry and CMVN).
+serving.json (front-end geometry and CMVN) and config.json (the encoder:
+transformer, or conformer with its conv_kernel).
 
 Output: Kaldi-style `utt text` lines (--out, default stdout) and an
 optional JSON of per-utterance segments:
@@ -86,7 +87,8 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
     if args.int8:
-        raise NotImplementedError("--int8 (infer/quantize.py) is not yet ported")
+        raise NotImplementedError("--int8 (infer/quantize.py) is not yet ported "
+                                  "(ROADMAP Queue 1 item 8: int8 serving)")
 
     from speech_recognition_tools_tpu_torch.infer.streaming_asr import OnlineASRPipeline
     from speech_recognition_tools_tpu_torch.io.scp import read_scp

@@ -17,16 +17,21 @@ Exactness contract: a model whose config has `attn_chunk > 0` and
   * under the chunk mask, layer l at chunk c attends only to chunks
     [c - left, c] of layer l-1, whose values were final when those chunks
     were current, so a per-layer cache of the last left * chunk block
-    inputs reproduces the offline attention.
+    inputs (a conformer block's post-ffn1 rows) reproduces the offline
+    attention;
+  * a conformer's depthwise conv is causal when attn_chunk > 0, so a
+    per-layer cache of the last conv_kernel - 1 rows of its input (after
+    the GLU) reproduces it; a fresh stream's zero tail is the offline
+    conv's zero left pad.
 
 The step reuses the offline model's modules (the encoder's `embed`, each
-`MHABlock`'s norms, attention and FFN, `after_norm`, `ctc_head`), so it
-needs no weights of its own. Its caches stay on the device as a dict of
-tensors; a round sends x, the positional rows, n_valid and update to the
+block's norms, attention, FFNs and conv module, `after_norm`,
+`ctc_head`), so it needs no weights of its own. Its caches stay on the
+device as a dict of tensors; a round sends x, the positional rows, n_valid and update to the
 device and brings the CTC rows back (and the encoder rows when memory is
 stored), nothing per stream. A fully masked key row (an idle or fresh
 stream) gets finfo.min logits everywhere, hence a uniform softmax and no
-NaN, as in flax. The conformer's streaming block is not ported.
+NaN, as in flax.
 """
 
 from __future__ import annotations
@@ -111,6 +116,22 @@ def _stream_block(layer, x_new, kv_raw, kv_mask):
     return x + layer.ff_out(h)
 
 
+def _stream_conformer_block(layer, x_new, attn_cache, conv_tail, kv_mask, valid_new):
+    """A ConformerBlock (causal conv) on the new chunk only: attention of
+    its queries against mhsa_norm([cached post-ffn1 rows | post-ffn1
+    chunk]), and a VALID depthwise conv over [cached conv-input tail |
+    the chunk's conv input]. Returns (block output, the attention rows
+    [cache | chunk], the conv input rows [tail | chunk]); the caches keep
+    the last rows of the two."""
+    x = x_new + 0.5 * layer.ffn1(x_new)
+    kv = torch.cat([attn_cache, x], dim=1)
+    x = x + layer.mhsa(layer.mhsa_norm(x), layer.mhsa_norm(kv), kv_mask)
+    conv = torch.cat([conv_tail, layer.conv_glu(x, valid_new)], dim=1)
+    x = x + layer.conv_out(conv)
+    x = x + 0.5 * layer.ffn2(x)
+    return layer.final_norm(x), kv, conv
+
+
 def make_stream_step(model):
     """The per-chunk encoder step, batched over streams, and its cache
     constructor: (step, init_caches).
@@ -127,7 +148,8 @@ def make_stream_step(model):
                happens inside the step (torch.where per row), so no cache
                is gathered or scattered per stream
       caches   {"layer_i": {"kv": (B, L, adim), "kv_valid": (B,)}}, L =
-               attn_left_chunks * attn_chunk, all on the model's device
+               attn_left_chunks * attn_chunk, and for a conformer
+               "conv": (B, conv_kernel - 1, adim), all on the model's device
 
     Every argument is a tensor on the model's device.
     """
@@ -142,12 +164,11 @@ def make_stream_step(model):
             "streaming needs bounded left context (cfg.attn_left_chunks"
             " >= 0); unbounded caches cannot be static-shaped"
         )
-    if c.encoder_type != "transformer":
-        raise NotImplementedError(
-            f"streaming encoder_type={c.encoder_type!r} is not yet ported")
     chunk = c.attn_chunk
     L = c.attn_left_chunks * chunk
     enc = model.encoder
+    conformer = enc.conformer
+    tail = c.conv_kernel - 1
     dev = _model_device(model)
     scale = float(np.sqrt(c.adim))
     cached = torch.arange(L, device=dev)[None, :]
@@ -168,28 +189,39 @@ def make_stream_step(model):
             # j >= L - kv_valid, new keys by n_valid; the whole chunk
             # attends within itself (the offline chunk-mask rule)
             key_mask = torch.cat([cached >= (L - kv_valid)[:, None], valid_new], dim=1)
-            kv_raw = torch.cat([cache["kv"], h], dim=1)
-            out = _stream_block(layer, h, kv_raw, key_mask[:, None, None, :])
-            new_caches[f"layer_{i}"] = {
-                "kv": torch.where(up_row, kv_raw[:, -L:], cache["kv"]) if L else cache["kv"],
-                "kv_valid": torch.where(update, (kv_valid + chunk).clamp_max(L), kv_valid),
-            }
+            kv_mask = key_mask[:, None, None, :]
+            nc = {}
+            if conformer:
+                out, kv, conv = _stream_conformer_block(
+                    layer, h, cache["kv"], cache["conv"], kv_mask, valid_new)
+                nc["conv"] = torch.where(up_row, conv[:, conv.shape[1] - tail:], cache["conv"])
+            else:
+                kv = torch.cat([cache["kv"], h], dim=1)
+                out = _stream_block(layer, h, kv, kv_mask)
+            nc["kv"] = torch.where(up_row, kv[:, -L:], cache["kv"]) if L else cache["kv"]
+            nc["kv_valid"] = torch.where(update, (kv_valid + chunk).clamp_max(L), kv_valid)
+            new_caches[f"layer_{i}"] = nc
             h = out
         h = enc.after_norm(h)
         return h, model.ctc_head(h), new_caches
 
     def init_caches(batch: int = 1):
-        return {f"layer_{i}": {
-            "kv": torch.zeros((batch, L, c.adim), device=dev),
-            "kv_valid": torch.zeros((batch,), dtype=torch.int32, device=dev),
-        } for i in range(c.elayers)}
+        caches = {}
+        for i in range(c.elayers):
+            entry = {"kv": torch.zeros((batch, L, c.adim), device=dev),
+                     "kv_valid": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+            if conformer:
+                entry["conv"] = torch.zeros((batch, tail, c.adim), device=dev)
+            caches[f"layer_{i}"] = entry
+        return caches
 
     return step, init_caches
 
 
 def _reset_rows(caches, mask):
     """Zero the cache rows selected by the (B,) bool mask: a fresh stream
-    taking a slot sees an empty history (kv_valid 0; kv zeroed too)."""
+    taking a slot sees an empty history (kv_valid 0; kv zeroed too) and a
+    conformer's zero conv tail, the offline causal conv's left pad."""
     def z(a):
         m = mask.reshape((-1,) + (1,) * (a.ndim - 1))
         return torch.where(m, torch.zeros_like(a), a)
@@ -704,7 +736,8 @@ class OnlineASRPipeline:
         through recog_e2e._load, front-end and global CMVN from its
         serving.json (FdlpConfig() defaults and no CMVN without one)."""
         if int8:
-            raise NotImplementedError("int8 encoder weights (infer/quantize.py) are not yet ported")
+            raise NotImplementedError("int8 encoder weights (infer/quantize.py) are not yet ported "
+                                      "(ROADMAP Queue 1 item 8: int8 serving)")
         from speech_recognition_tools_tpu_torch.cli.recog_e2e import _load
 
         model, _cfg, vocab = _load(model_dir, ckpt, device=device)

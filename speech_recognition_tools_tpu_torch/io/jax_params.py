@@ -11,7 +11,8 @@ on the input path (hr and hz have none) and hn keeps its bias inside the
 the three input biases stacked r|z|n, and no bias is folded or split off.
 
 `transformer_asr_from_jax` and `rnnlm_from_jax` do the same for
-models/transformer_asr.py::TransformerASR and models/rnnlm.py::RNNLM, and
+models/transformer_asr.py::TransformerASR (either encoder type: a tree
+whose encoder layers hold `mhsa` is a conformer's) and models/rnnlm.py::RNNLM, and
 raise if any leaf of the flax tree is left unused.
 
 `rnn_classifier_to_jax`, `transformer_asr_to_jax` and `rnnlm_to_jax` are
@@ -156,11 +157,14 @@ _KINDS = {
     # the out kernel (H, hd, D) <-> a Linear from the flat H * hd
     "heads_out": (lambda a, h: a.reshape(-1, a.shape[-1]).T,
                   lambda w, h: w.T.reshape(h, -1, w.shape[0])),
+    # a depthwise Conv kernel (k, 1, D) <-> a grouped Conv1d's (D, 1, k)
+    "depthwise": (lambda a, h: a.transpose(2, 1, 0), lambda w, h: w.transpose(2, 1, 0)),
 }
 
 
-def _asr_layout(n_enc: int, n_dec: int) -> list:
-    """(flax path, state_dict name, kind) for every TransformerASR leaf."""
+def _asr_layout(n_enc: int, n_dec: int, conformer: bool = False) -> list:
+    """(flax path, state_dict name, kind) for every TransformerASR leaf;
+    `conformer` picks the encoder block's layout."""
     rows = []
 
     def dense(path, name):
@@ -188,13 +192,33 @@ def _asr_layout(n_enc: int, n_dec: int) -> list:
         dense((*path, "Dense_0"), f"{name}.ff_in")
         dense((*path, "Dense_1"), f"{name}.ff_out")
 
+    def conformer_block(path, name):
+        # _ConformerBlock names its submodules explicitly
+        for part in ("ffn1", "ffn2"):
+            norm((*path, f"{part}_norm"), f"{name}.{part}_norm")
+            dense((*path, f"{part}_in"), f"{name}.{part}_in")
+            dense((*path, f"{part}_out"), f"{name}.{part}_out")
+        norm((*path, "mhsa_norm"), f"{name}.mhsa_norm")
+        attention((*path, "mhsa"), f"{name}.mhsa")
+        norm((*path, "conv_norm"), f"{name}.conv_norm")
+        dense((*path, "conv_pointwise_in"), f"{name}.conv_pointwise_in")
+        rows.append(((*path, "conv_depthwise", "kernel"), f"{name}.conv_depthwise.weight",
+                     "depthwise"))
+        rows.append(((*path, "conv_depthwise", "bias"), f"{name}.conv_depthwise.bias", "same"))
+        norm((*path, "conv_mid_norm"), f"{name}.conv_mid_norm")
+        dense((*path, "conv_pointwise_out"), f"{name}.conv_pointwise_out")
+        norm((*path, "final_norm"), f"{name}.final_norm")
+
     for i in (0, 1):
         path = ("encoder", "embed", f"Conv_{i}")
         rows.append(((*path, "kernel"), f"encoder.embed.conv{i}.weight", "conv"))
         rows.append(((*path, "bias"), f"encoder.embed.conv{i}.bias", "same"))
     dense(("encoder", "embed", "Dense_0"), "encoder.embed.out")
     for i in range(n_enc):
-        block(("encoder", f"layer_{i}"), f"encoder.layers.{i}", cross=False)
+        if conformer:
+            conformer_block(("encoder", f"layer_{i}"), f"encoder.layers.{i}")
+        else:
+            block(("encoder", f"layer_{i}"), f"encoder.layers.{i}", cross=False)
     norm(("encoder", "after_norm"), "encoder.after_norm")
     rows.append((("decoder", "embed", "embedding"), "decoder.embed.weight", "same"))
     for i in range(n_dec):
@@ -212,24 +236,26 @@ def _count_layers(names, *path):
 
 def transformer_asr_from_jax(params: dict) -> dict:
     """flax TransformerASR params (with or without the outer {"params":
-    ...}; transformer encoder) -> the port's TransformerASR state_dict."""
+    ...}; either encoder type) -> the port's TransformerASR state_dict."""
     leaves = _Leaves(params)
     names = list(leaves.left)
+    conformer = any(k[:3] == ("encoder", "layer_0", "mhsa") for k in names)
     sd = {}
     for path, name, kind in _asr_layout(_count_layers(names, "encoder"),
-                                        _count_layers(names, "decoder")):
+                                        _count_layers(names, "decoder"), conformer):
         sd[name] = _t(_KINDS[kind][0](leaves.take(*path), None))
     leaves.done()
     return sd
 
 
 def transformer_asr_to_jax(sd: dict, aheads: int) -> dict:
-    """The port's TransformerASR state_dict (or a dict keyed like it) ->
-    the flax tree {"params": ...} of numpy arrays; `aheads` splits the
-    attention's flat q/k/v/out axes into (heads, head_dim)."""
+    """The port's TransformerASR state_dict (or a dict keyed like it, of
+    either encoder type) -> the flax tree {"params": ...} of numpy arrays;
+    `aheads` splits the attention's flat q/k/v/out axes into (heads,
+    head_dim)."""
     n_enc = len({k.split(".")[2] for k in sd if k.startswith("encoder.layers.")})
     n_dec = len({k.split(".")[2] for k in sd if k.startswith("decoder.layers.")})
-    layout = _asr_layout(n_enc, n_dec)
+    layout = _asr_layout(n_enc, n_dec, conformer="encoder.layers.0.mhsa.query.weight" in sd)
     if set(sd) != {name for _, name, _ in layout}:
         raise ValueError("state_dict keys do not match the TransformerASR layout: "
                          f"{sorted(set(sd) ^ {name for _, name, _ in layout})}")

@@ -2,8 +2,9 @@
 
 Port of speech_recognition_tools_tpu/models/transformer_asr.py:
 TransformerASRConfig, chunk_attention_mask, posenc_host, _embed_scale,
-_MHABlock, Conv2dSubsampling, TransformerEncoder, TransformerDecoder (its
-full-prefix mode), TransformerASR (`forward`, `encode`, `decode_step`),
+_MHABlock, _ConformerBlock, Conv2dSubsampling, TransformerEncoder (either
+block type), TransformerDecoder (its full-prefix mode), TransformerASR
+(`forward`, `encode`, `decode_step`),
 greedy_ctc, and the training half: the joint CTC/attention loss
 (`ctc_loss`, `joint_loss`, `asr_loss`), `noam_schedule` and
 `average_checkpoints`. The reference's headline model is ESPnet's
@@ -30,9 +31,18 @@ The modules compute what the flax modules compute, to float32 rounding:
   - `reset_parameters(generator)` draws flax's default distributions
     (models/flax_init.py).
 
+The conformer block (encoder_type "conformer") is the JAX package's, not
+the paper's: LayerNorm in place of BatchNorm in the conv module, absolute
+sinusoidal positions. Its conv module zeroes padded frames after
+`conv_norm`, but `conv_pointwise_in`'s bias makes them nonzero again, so
+with the non-causal ("SAME") depthwise conv of attn_chunk 0 a batch's
+padding reaches the last conv_kernel // 2 valid frames once that bias is
+nonzero. The port computes exactly this, as the JAX package does; the
+causal conv of attn_chunk > 0 looks only left and is not affected.
+
 io/jax_params.py carries a flax parameter tree over in both directions.
 The compute type is float32 (bf16 raises NotImplementedError); the
-conformer encoder and the KV-cached incremental decoder are not ported.
+KV-cached incremental decoder is not ported.
 """
 
 import math
@@ -61,7 +71,8 @@ class TransformerASRConfig:
     dropout: float = 0.1
     mtlalpha: float = 0.3  # CTC weight in the joint loss
     lsm_weight: float = 0.1  # label smoothing of the attention loss
-    encoder_type: str = "transformer"  # 'conformer' is not ported
+    encoder_type: str = "transformer"  # or 'conformer'
+    conv_kernel: int = 15  # the conformer's depthwise conv width
     # chunked encoder self-attention: each frame attends within its chunk
     # of `attn_chunk` frames plus `attn_left_chunks` chunks of left context
     # (-1 = unbounded); 0 = full attention
@@ -197,6 +208,74 @@ class MHABlock(nn.Module):
         return x + self.drop(self.ff_out(h))
 
 
+def _ffn(norm, lin_in, lin_out, x, drop):
+    """The conformer's macaron FFN: LayerNorm, Dense, swish, dropout,
+    Dense, dropout (the caller halves it)."""
+    return drop(lin_out(drop(F.silu(lin_in(norm(x))))))
+
+
+def _no_drop(x):
+    return x
+
+
+class ConformerBlock(nn.Module):
+    """Port of _ConformerBlock: x + FFN/2, pre-norm self-attention, the
+    conv module (LayerNorm, padded frames zeroed, pointwise Dense to 2 x
+    adim, GLU, depthwise conv over time, LayerNorm, swish, pointwise
+    Dense), x + FFN/2, then a final LayerNorm. The depthwise conv pads as
+    flax's "SAME" (the extra pad of an even kernel on the right) when
+    attn_chunk == 0, and causally (k - 1 zeros on the left) when
+    attn_chunk > 0. Submodules carry flax's names for the tree's leaves."""
+
+    def __init__(self, cfg: TransformerASRConfig, ff_dim: int, *, device=None):
+        super().__init__()
+        D, k = cfg.adim, cfg.conv_kernel
+        self.ffn1_norm = LayerNorm(D, device=device)
+        self.ffn1_in = nn.Linear(D, ff_dim, device=device)
+        self.ffn1_out = nn.Linear(ff_dim, D, device=device)
+        self.mhsa_norm = LayerNorm(D, device=device)
+        self.mhsa = MultiHeadAttention(D, cfg.aheads, device=device)
+        self.conv_norm = LayerNorm(D, device=device)
+        self.conv_pointwise_in = nn.Linear(D, 2 * D, device=device)
+        self.conv_depthwise = nn.Conv1d(D, D, k, groups=D, device=device)
+        self.conv_mid_norm = LayerNorm(D, device=device)
+        self.conv_pointwise_out = nn.Linear(D, D, device=device)
+        self.ffn2_norm = LayerNorm(D, device=device)
+        self.ffn2_in = nn.Linear(D, ff_dim, device=device)
+        self.ffn2_out = nn.Linear(ff_dim, D, device=device)
+        self.final_norm = LayerNorm(D, device=device)
+        self.drop = nn.Dropout(cfg.dropout)
+        left = k - 1 if cfg.attn_chunk > 0 else (k - 1) // 2
+        self.conv_pad = (left, k - 1 - left)
+
+    def ffn1(self, x, drop=_no_drop):
+        return _ffn(self.ffn1_norm, self.ffn1_in, self.ffn1_out, x, drop)
+
+    def ffn2(self, x, drop=_no_drop):
+        return _ffn(self.ffn2_norm, self.ffn2_in, self.ffn2_out, x, drop)
+
+    def conv_glu(self, x, valid):
+        """The conv module up to the depthwise conv's input: LayerNorm,
+        frames where `valid` (B, T) is False zeroed, pointwise Dense, GLU."""
+        h = self.conv_norm(x) * valid[..., None].to(x.dtype)
+        return F.glu(self.conv_pointwise_in(h), dim=-1)
+
+    def conv_out(self, h):
+        """The rest of the conv module on an already padded (B, T + k - 1,
+        adim) input: VALID depthwise conv, LayerNorm, swish, pointwise Dense."""
+        h = self.conv_depthwise(h.transpose(1, 2)).transpose(1, 2)
+        return self.conv_pointwise_out(F.silu(self.conv_mid_norm(h)))
+
+    def forward(self, x, self_mask, valid):
+        x = x + 0.5 * self.ffn1(x, self.drop)
+        h = self.mhsa_norm(x)
+        x = x + self.drop(self.mhsa(h, h, self_mask))
+        h = F.pad(self.conv_glu(x, valid), (0, 0, *self.conv_pad))
+        x = x + self.drop(self.conv_out(h))
+        x = x + 0.5 * self.ffn2(x, self.drop)
+        return self.final_norm(x)
+
+
 def subsampled_length(lengths: torch.Tensor) -> torch.Tensor:
     """Frames after two VALID stride-2 3x3 convs; 0 below 7 input frames."""
     half = torch.div(lengths - 1, 2, rounding_mode="floor")
@@ -236,13 +315,15 @@ class Conv2dSubsampling(nn.Module):
 class TransformerEncoder(nn.Module):
     def __init__(self, cfg: TransformerASRConfig, idim: int, *, device=None):
         super().__init__()
-        if cfg.encoder_type != "transformer":
-            raise NotImplementedError(
-                f"encoder_type={cfg.encoder_type!r} is not yet ported (transformer only)")
+        if cfg.encoder_type not in ("transformer", "conformer"):
+            raise ValueError(f"encoder_type={cfg.encoder_type!r}: use 'transformer' or "
+                             "'conformer'")
         self.cfg = cfg
+        self.conformer = cfg.encoder_type == "conformer"
+        block = ConformerBlock if self.conformer else MHABlock
         self.embed = Conv2dSubsampling(idim, cfg.adim, device=device)
         self.layers = nn.ModuleList(
-            MHABlock(cfg, cfg.eunits, device=device) for _ in range(cfg.elayers))
+            block(cfg, cfg.eunits, device=device) for _ in range(cfg.elayers))
         self.after_norm = LayerNorm(cfg.adim, device=device)
         self.drop = nn.Dropout(cfg.dropout)
 
@@ -257,7 +338,7 @@ class TransformerEncoder(nn.Module):
             self_mask = self_mask & chunk_attention_mask(
                 T2, c.attn_chunk, c.attn_left_chunks, device=h.device)[None, None]
         for layer in self.layers:
-            h = layer(h, self_mask)
+            h = layer(h, self_mask, mask) if self.conformer else layer(h, self_mask)
         return self.after_norm(h), out_len
 
 
@@ -303,7 +384,8 @@ class TransformerASR(nn.Module):
         super().__init__()
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r} is not yet ported (float32 only)")
+                f"compute_dtype={cfg.compute_dtype!r} is not yet ported (float32 only; "
+                "ROADMAP Queue 1 item 4: bf16 compute)")
         dev = resolve_device(device)
         if dev.type == "cuda":
             configure_cuda()
@@ -320,8 +402,9 @@ class TransformerASR(nn.Module):
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 flax_init.dense_(m, generator)
-            elif isinstance(m, nn.Conv2d):
-                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+            elif isinstance(m, (nn.Conv1d, nn.Conv2d)):
+                # a depthwise conv's fan_in is its kernel width x 1 channel
+                fan_in = m.in_channels // m.groups * math.prod(m.kernel_size)
                 flax_init.lecun_normal_(m.weight, fan_in, generator)
                 flax_init.zeros_(m.bias)
             elif isinstance(m, nn.Embedding):

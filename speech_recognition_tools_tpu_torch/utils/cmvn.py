@@ -1,8 +1,9 @@
 """Cepstral mean/variance normalisation over padded batches.
 
-Port of speech_recognition_tools_tpu/utils/cmvn.py::cmvn_stats_masked,
-apply_cmvn and apply_cmvn_per_utterance (the reference shells out to Kaldi
-compute-cmvn-stats / apply-cmvn).
+Port of speech_recognition_tools_tpu/utils/cmvn.py: cmvn_stats,
+cmvn_stats_masked, apply_cmvn and apply_cmvn_per_utterance (the reference
+shells out to Kaldi compute-cmvn-stats / apply-cmvn). Every standard
+deviation is the population one (jnp.std's ddof 0).
 """
 
 import torch
@@ -12,6 +13,13 @@ def _frame_mask(feats: torch.Tensor, num_frames: torch.Tensor) -> torch.Tensor:
     T = feats.shape[1]
     idx = torch.arange(T, device=feats.device)[None, :]
     return (idx < num_frames.to(feats.device)[:, None]).to(feats.dtype)
+
+
+def cmvn_stats(feats: torch.Tensor):
+    """Global mean/std over every axis but the last. feats: (T, D) or
+    (B, T, D). Returns ((D,), (D,))."""
+    dims = tuple(range(feats.ndim - 1))
+    return feats.mean(dim=dims), feats.std(dim=dims, correction=0)
 
 
 def cmvn_stats_masked(feats: torch.Tensor, num_frames: torch.Tensor):

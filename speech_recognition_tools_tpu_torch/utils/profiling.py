@@ -1,12 +1,37 @@
-"""Throughput counters for the training CLIs.
+"""Tracing and throughput counters.
 
-Port of speech_recognition_tools_tpu/utils/profiling.py::ThroughputMeter
-(the JAX module's trace helpers wrap jax.profiler; the port's profiles are
-torch.profiler windows in chip_smoke.py). The caller synchronises the
-device before reading a rate: the meter reads the host clock.
+Port of speech_recognition_tools_tpu/utils/profiling.py: `trace` captures
+a torch.profiler trace (the JAX package's captures a jax.profiler one),
+`annotate` names a region inside it, and `ThroughputMeter` counts
+utterances and audio seconds per wall second for the CLIs. The caller
+synchronises the device before reading a rate: the meter reads the host
+clock.
 """
 
+import contextlib
 import time
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, device="cuda"):
+    """Capture a torch.profiler trace of the block into `log_dir` as a
+    Chrome trace JSON (`<host>_<pid>.<ms>.pt.trace.json`, which
+    chrome://tracing, Perfetto and TensorBoard read). CPU activities are
+    traced always, CUDA activities when `device` is a CUDA device."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+
+
+def annotate(name: str):
+    """A named region inside a trace."""
+    return torch.profiler.record_function(name)
 
 
 class ThroughputMeter:

@@ -212,7 +212,7 @@ def test_posenc_tables_byte_identical():
 
 
 @pytest.mark.parametrize("cfg", [dict(compute_dtype="bfloat16"),
-                                 dict(encoder_type="conformer")])
+                                 dict(compute_dtype="bfloat16", encoder_type="conformer")])
 def test_unported_options_raise(cfg):
     with pytest.raises(NotImplementedError):
         ttasr.TransformerASR(ttasr.TransformerASRConfig(**cfg), D, device="cpu")

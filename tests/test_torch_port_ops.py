@@ -88,15 +88,17 @@ def test_port_imports_no_jax():
 
 def test_import_checks_cover_the_serving_modules():
     """The two isolation tests above and below walk the whole package; the
-    serving path's modules, the LM-training stage's and the hybrid decode
-    end's are among what they walk."""
+    serving path's modules, the LM-training stage's, the hybrid decode
+    end's and the MFCC / mel front-ends' are among what they walk."""
     mods = set(_port_modules())
     for m in ("dsp.streaming", "infer.streaming_asr", "eval.wer", "cli.recog_e2e",
               "cli.serve", "cli.serve_client", "cli.transcribe",
               "cli.train_lm", "models.rnnlm", "cli.compute_prior", "cli.dump_outputs",
               "cli.train_ngram", "cli.decode_wfst", "decode.export", "decode.viterbi",
               "decode.graph", "decode.wfst", "decode.lattice", "models.ngram_lm",
-              "align.forced", "io.kaldi_ark", "io.scp", "io.native"):
+              "align.forced", "io.kaldi_ark", "io.scp", "io.native",
+              "dsp.mfcc", "dsp.melspec", "utils.splice", "utils.transforms",
+              "utils.profiling", "cli.compute_mfcc", "cli.compute_mel_spectrum"):
         assert f"speech_recognition_tools_tpu_torch.{m}" in mods, m
 
 

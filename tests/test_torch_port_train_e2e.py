@@ -490,7 +490,7 @@ def test_train_e2e_main_checkpoints_both_ways(tmp_path):
     assert os.path.isdir(os.path.join(warm, "final_avg"))
 
     for bad in (["--tensor_parallel", "2"], ["--pipeline_parallel", "2"], ["--data_parallel"],
-                ["--encoder_type", "conformer"], ["--compute_dtype", "bfloat16"]):
+                ["--compute_dtype", "bfloat16"]):
         with pytest.raises(NotImplementedError):
             tcli.main([egs, text, str(tmp_path / "x"), *geo, "--device", "cpu", *bad])
 
