@@ -134,9 +134,30 @@ exits non-zero. Phases:
      equal per-stream OnlineASRPipeline runs (K1 counted; a mismatch only
      at a CTC near-tie). Each part prints its wall and device ms and busy
      share;
-  11. one JSON line describing every kernel of the port (`launches` is the
+  11. (a) wsj_fdlp_e2e's front-end at precision 'high' (float64 from the
+     window multiply on) on phase 3's batch: no K1 launch, the card against
+     the CPU on 4 utterances and 'blocked:15' against 'scan' at float64 I/O
+     (HIGH_TOL), high against phase 3's fast features (HIGH_VS_FAST_MAX,
+     HIGH_VS_FAST_P999), ms a batch and
+     the float64 LPC stage's ms by backend, a profile. (b)
+     compute_modulation_spectrum.main at its CLI defaults (15 bands, order
+     50, coefficients 5-30, batch 8) on phase 3's 32 utterances as wavs:
+     the default, --set_unity_gain, --complex_modulation and
+     --complex_modulation --absolute_value, card against CPU on 4
+     utterances (real: MODSPEC_TOL of the features' scale; complex: finite,
+     MODSPEC_COMPLEX_TOL on all but MODSPEC_COMPLEX_SHARE of the entries,
+     and card against CPU in float64 within MODSPEC_F64_TOL);
+     K1 launched on the real runs (counted) and the plain version never
+     reached there, the complex runs on the plain loops; K1 against its
+     plain version on the path's own lags with unity gain off and on
+     (MODSPEC_K1_TOL, MODSPEC_K1_REL), its kernel ms, plain ms and bound; the
+     batch's and the CLI's real-time factors and a profile. (c) phase 5's
+     search on its 32 encoded utterances with the KV-cached decoder against
+     the full-prefix one: hypotheses token-identical (a difference only at
+     a near-tie), best scores within INCR_SCORE_REL; ms a step both ways;
+  12. one JSON line describing every kernel of the port (`launches` is the
      hybrid main path's count, `launches_by_path` each path's);
-  12. the run's time, the card's name and power limit again, then the last
+  13. the run's time, the card's name and power limit again, then the last
      line: {"ok": true, "device": {...}}.
 """
 
@@ -245,6 +266,46 @@ CONF_AM = dict(E2E_AM, encoder_type="conformer", conv_kernel=15)
 CONF_MAX_LEN = 50
 CONF_TRAIN = dict(E2E_TRAIN, epochs=1, average_last=1)
 CONF_STREAMS, CONF_SLOTS = 5, 4
+
+# phase 11 (a): wsj_fdlp_e2e's front-end at precision 'high' (float64 from
+# the window multiply on): card against CPU on HIGH_CPU_UTTS utterances and
+# 'blocked:15' against 'scan' within HIGH_TOL (the bound the CPU tests hold
+# the high path to against the JAX package), both at float64 I/O (at
+# float32 I/O their differences vanish in the cast); high against fast (K1,
+# the f32 ridge): max|diff| and its 99.9th percentile within
+# HIGH_VS_FAST_MAX and HIGH_VS_FAST_P999, about 4x the first card readings
+# (1.44 and 0.059)
+HIGH_CPU_UTTS = 4
+HIGH_TOL = 1e-6
+HIGH_VS_FAST_MAX, HIGH_VS_FAST_P999 = 6.0, 0.25
+# phase 11 (b): compute_modulation_spectrum at its CLI defaults (15 bands,
+# order 50, coefficients 5-30, 0.5 s windows at 100 Hz, batch 8); card
+# against CPU on MODSPEC_CPU_UTTS utterances, |err| over the features' scale
+# (their 99.9th percentile of |value|): real float32 features within
+# MODSPEC_TOL everywhere. The complex64 chain (both packages: no ridge, and
+# order-50 Hermitian Levinson in float32) degenerates on a small share of
+# narrowband rows, whose values are rounding noise that no two summation
+# orders share (on the CPU the JAX package's own float32 features stray
+# past 5% of the scale from its float64 ones on 0.2% of the entries, the
+# port's on 0.6%): complex features are held finite, within
+# MODSPEC_COMPLEX_TOL on all but MODSPEC_COMPLEX_SHARE of the entries, and
+# in float64 (no degenerate rows) card against CPU within MODSPEC_F64_TOL.
+# K1 against its plain version on the path's own lags: MODSPEC_K1_TOL and
+# MODSPEC_K1_REL as MAIN_PATH_TOL and MAIN_PATH_REL, about 4x the first
+# readings (1.05e-3 and 1.38e-2: these rows are worse conditioned than the
+# hybrid main path's)
+MODSPEC_CPU_UTTS = 4
+MODSPEC_K1_TOL, MODSPEC_K1_REL = 4e-3, 5e-2
+MODSPEC_TOL = 1e-2
+MODSPEC_COMPLEX_TOL = 5e-2
+MODSPEC_COMPLEX_SHARE = 2e-2
+MODSPEC_F64_TOL = 1e-6
+MODSPEC_RUNS = {"default": [], "unity_gain": ["--set_unity_gain"],
+                "complex": ["--complex_modulation"],
+                "complex_abs": ["--complex_modulation", "--absolute_value"]}
+# phase 11 (c): the incremental (KV-cached) search against the full-prefix
+# one on phase 5's model: best scores within INCR_SCORE_REL, relative
+INCR_SCORE_REL = 1e-4
 
 # (order, coeff_num) of the front-ends in recipes/configs: wsj/chime4/
 # conformer e2e, timit_hybrid, reverb
@@ -523,7 +584,9 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
     fused with a 1 x 1000 GRU RNNLM (embed 256) at weight 1.0, seeded
     random flax-layout weights. Returns (K1's launches over the driven run,
     {"asr", "lm", "mem", "enc_len", "ctc", "vocab"}: the model, its RNNLM
-    and the encoder output of the first four utterances, for phase 9)."""
+    and the encoder output of the first four utterances, for phase 9, and
+    the whole batch's under "mem_all", "enc_len_all", "ctc_all", for phase
+    11)."""
     import string
 
     from speech_recognition_tools_tpu_torch.decode.beam_jit import (
@@ -664,7 +727,7 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
         f"score rel err {beam_rel:.3e} (limit 1e-4), token-identical {same} of 2")
     log(f"[e2e] sample hypotheses: {texts[0][:60]!r} / {texts[1][:60]!r}")
     return launches, dict(asr=asr, lm=lm, mem=mem[:4], enc_len=enc_len[:4], ctc=ctc[:4],
-                          vocab=vocab)
+                          vocab=vocab, mem_all=mem, enc_len_all=enc_len, ctc_all=ctc)
 
 
 def _rel(a, b):
@@ -1979,6 +2042,259 @@ def conformer_phase(x, lens, fdlp_cfg, feats, nfr, rng, dev, tmp):
     return launches, stream_launches
 
 
+def high_precision_phase(x, lens, fdlp_cfg, fa, na, dev):
+    """Phase 11 (a): wsj_fdlp_e2e's front-end at precision 'high' on phase
+    3's batch, float64 on the card: no K1 launch (K1 is float32-only), card
+    against CPU, 'blocked:15' (the default) against 'scan', high against
+    phase 3's fast features; ms a batch, the LPC stage's ms by backend, and
+    a profile."""
+    from speech_recognition_tools_tpu_torch.dsp.fdlp import (
+        FdlpConfig,
+        _lpc_cepstra,
+        fdlp_lags,
+        fdlp_spectrogram_batch,
+    )
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import lpc_cepstra
+
+    t_phase = time.perf_counter()
+    hi = FdlpConfig(**{**fdlp_cfg.__dict__, "precision": "high"})
+    scan = FdlpConfig(**{**hi.__dict__, "lpc_backend": "scan"})
+    audio_s = float(lens.sum()) / hi.srate
+    lpc_cepstra.launches = 0
+    t_hi, (fh, nh) = wall_s(lambda: fdlp_spectrogram_batch(x, lens, hi, device=dev), repeats=2)
+    assert lpc_cepstra.launches == 0, "the float64 path launched K1"
+    assert torch.equal(nh, na) and fh.shape == fa.shape and fh.dtype == torch.float32
+    vh, vf = valid_rows(fh, nh), valid_rows(fa, na)
+    assert torch.isfinite(vh).all()
+    hf_diff = (vh - vf).abs().flatten()
+    hf_err, hf_p999 = hf_diff.max().item(), torch.quantile(hf_diff[:2**24], 0.999).item()
+    assert hf_err <= HIGH_VS_FAST_MAX and hf_p999 <= HIGH_VS_FAST_P999, (hf_err, hf_p999)
+    t_scan, _ = wall_s(lambda: fdlp_spectrogram_batch(x, lens, scan, device=dev), repeats=1)
+    f64 = dict(dtype=torch.float64, device=dev)
+    fb64, nb64 = fdlp_spectrogram_batch(x, lens, hi, **f64)
+    fs64, ns64 = fdlp_spectrogram_batch(x, lens, scan, **f64)
+    assert torch.equal(ns64, nh) and torch.equal(nb64, nh)
+    bs_err = (valid_rows(fs64, ns64) - valid_rows(fb64, nb64)).abs().max().item()
+    assert bs_err <= HIGH_TOL, bs_err
+
+    # card against CPU on the first utterances (the CPU's float64 lags are slow)
+    k = HIGH_CPU_UTTS
+    xs, ls = x[:k, : int(lens[:k].max())], lens[:k]
+    fg, ng = fdlp_spectrogram_batch(xs, ls, hi, **f64)
+    t_cpu, (fc, nc) = _synced(lambda: fdlp_spectrogram_batch(xs, ls, hi, dtype=torch.float64,
+                                                             device="cpu"))
+    assert torch.equal(ng.cpu(), nc)
+    cc_err = (valid_rows(fg.cpu(), nc) - valid_rows(fc, nc)).abs().max().item()
+    assert cc_err <= HIGH_TOL, cc_err
+
+    # the float64 LPC stage alone, by backend, on the batch's own lags
+    r, _ = fdlp_lags(x, lens, hi, device=dev)
+    assert r.dtype == torch.float64
+    lpc_ms = {b: cuda_ms(lambda b=b: _lpc_cepstra(r, hi.order, hi.coeff_num, b), reps=1,
+                         repeats=3) for b in ("blocked:15", "scan")}
+    t_lags, _ = wall_s(lambda: fdlp_lags(x, lens, hi, device=dev), repeats=2)
+    device_breakdown("fdlp high, wsj_fdlp_e2e batch",
+                     lambda: fdlp_spectrogram_batch(x, lens, hi, device=dev))
+    log(f"[high] wsj_fdlp_e2e precision high, {len(lens)} x {lens.min() / 16000:.1f}-"
+        f"{lens.max() / 16000:.1f} s ({audio_s:.1f} s audio), {r.shape[0] * r.shape[1]} "
+        f"float64 LPC rows: {t_hi * 1e3:.2f} ms/batch = {audio_s / t_hi:.1f}x real time "
+        f"(fast path, phase 3: see [featgen]); lags alone {t_lags * 1e3:.2f} ms; LPC stage "
+        f"blocked:15 {lpc_ms['blocked:15']:.2f} ms, scan {lpc_ms['scan']:.2f} ms; whole batch "
+        f"with scan {t_scan * 1e3:.2f} ms; K1 launches 0")
+    log(f"[high] max|high - fast(K1)| {hf_err:.3e} (limit {HIGH_VS_FAST_MAX}), p99.9 "
+        f"{hf_p999:.3e} (limit {HIGH_VS_FAST_P999}); at float64 I/O max|blocked:15 - scan| "
+        f"{bs_err:.3e}, max|card - cpu| on {k} utterances {cc_err:.3e} (limit {HIGH_TOL}); "
+        f"CPU {t_cpu:.2f} s for them; phase 11 (a) took {time.perf_counter() - t_phase:.1f} s")
+
+
+def modspec_phase(x, lens, dev, tmp):
+    """Phase 11 (b): compute_modulation_spectrum.main at its CLI defaults on
+    phase 3's 32 utterances written as wavs, batch 8, on the card: the
+    default, --set_unity_gain, --complex_modulation and --complex_modulation
+    --absolute_value, each held card against CPU on the first utterances;
+    K1 counted (real float32 lags launch it; the plain version is never
+    reached there), K1 against its plain version on the path's own lags
+    (unity gain on and off), its ms and bound at the path's shape, the
+    batch's and the CLI's real-time factors and a profile. Returns K1's
+    launches over the default run."""
+    from scipy.io.wavfile import write as wav_write
+
+    from speech_recognition_tools_tpu_torch.cli import compute_modulation_spectrum as cli_mod
+    from speech_recognition_tools_tpu_torch.dsp import modspec
+    from speech_recognition_tools_tpu_torch.io.kaldi_ark import read_ark
+    from speech_recognition_tools_tpu_torch.ops import lpc_cepstra as k1_mod
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import (
+        lpc_cepstra,
+        lpc_cepstra_reference,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = modspec.ModSpecConfig()
+    srate = cfg.srate
+    wav_dir = os.path.join(tmp, "modspec_wavs")
+    os.makedirs(wav_dir)
+    scps = {}
+    for name, utts in (("all", range(len(lens))), ("cpu", range(MODSPEC_CPU_UTTS))):
+        scps[name] = os.path.join(tmp, f"modspec_{name}.scp")
+        with open(scps[name], "w") as fh:
+            for b in utts:
+                path = os.path.join(wav_dir, f"utt{b:02d}.wav")
+                if not os.path.exists(path):
+                    wav_write(path, srate, np.round(x[b, : lens[b]]).astype(np.int16))
+                fh.write(f"utt{b:02d} {path}\n")
+    audio_s = float(lens.sum()) / srate
+
+    plain_calls = []
+
+    def counted_plain(*a, **kw):
+        plain_calls.append(a[0].device.type)
+        return lpc_cepstra_reference(*a, **kw)
+
+    def cli(name, device, scp):
+        out = os.path.join(tmp, f"modspec_{name}_{device}")
+        t, _ = _synced(lambda: cli_mod.main([scp, out, *MODSPEC_RUNS[name],
+                                             "--write_utt2num_frames", "--device",
+                                             str(device)]))
+        return t, dict(read_ark(out + ".ark"))
+
+    cli("default", dev, scps["all"])  # cuFFT plans and first launches
+    rows, launches = {}, {}
+    for name in MODSPEC_RUNS:
+        complex_run = "--complex_modulation" in MODSPEC_RUNS[name]
+        plain_calls.clear()
+        lpc_cepstra.launches = 0
+        modspec.lpc_cepstra_reference = k1_mod.lpc_cepstra_reference = counted_plain
+        try:
+            t_card, card = cli(name, dev, scps["all"])
+        finally:
+            modspec.lpc_cepstra_reference = k1_mod.lpc_cepstra_reference = (
+                lpc_cepstra_reference)
+        launches[name] = lpc_cepstra.launches
+        if complex_run:  # complex lags: the plain loops on the card, no K1
+            assert launches[name] == 0 and plain_calls and set(plain_calls) == {dev.type}
+        else:  # real float32 lags: K1 only
+            assert launches[name] > 0, f"modspec {name} launched no K1"
+            assert not plain_calls, f"modspec {name} reached the plain version"
+        t_cpu, cpu = cli(name, "cpu", scps["cpu"])
+        assert len(card) == len(lens) and set(cpu) <= set(card)
+        for v in card.values():
+            assert np.isfinite(v).all() and v.shape[1] == cfg.nfilters * (
+                2 * cfg.coeff_num if name == "complex" else cfg.coeff_num)
+        got = np.concatenate([card[k].ravel() for k in sorted(cpu)])
+        ref = np.concatenate([cpu[k].ravel() for k in sorted(cpu)])
+        assert np.isfinite(ref).all()
+        scale = float(np.percentile(np.abs(ref), 99.9))
+        d = np.abs(got - ref) / scale
+        share = float((d > MODSPEC_COMPLEX_TOL).mean())
+        if complex_run:
+            assert share <= MODSPEC_COMPLEX_SHARE, (name, share, d.max())
+        else:
+            assert d.max() <= MODSPEC_TOL, (name, d.max(), scale)
+        rows[name] = (t_card, t_cpu, float(d.max()), float(np.percentile(d, 99)), share,
+                      scale)
+
+    # complex modulation in float64, card against CPU; the card's float32
+    # features against its float64 ones
+    k = MODSPEC_CPU_UTTS
+    xs, ls = x[:k, : int(lens[:k].max())], lens[:k]
+    ccfg = modspec.ModSpecConfig(complex_modulation=True)
+    f64g, n64 = modspec.modulation_spectrum_batch(xs, ls, ccfg, dtype=torch.float64,
+                                                  device=dev)
+    f64c, _ = modspec.modulation_spectrum_batch(xs, ls, ccfg, dtype=torch.float64,
+                                                device="cpu")
+    f32g, _ = modspec.modulation_spectrum_batch(xs, ls, ccfg, device=dev)
+    v64g, v64c = valid_rows(f64g, n64).cpu(), valid_rows(f64c, n64.cpu())
+    v32g = valid_rows(f32g, n64).cpu().double()
+    scale64 = torch.quantile(v64c.abs().flatten()[:2**24], 0.999).item()
+    err64 = (v64g - v64c).abs().max().item() / scale64
+    assert torch.isfinite(v64g).all() and err64 <= MODSPEC_F64_TOL, err64
+    d32 = (v32g - v64g).abs() / scale64
+    share32 = (d32 > MODSPEC_COMPLEX_TOL).double().mean().item()
+
+    # the batch alone, K1 at the path's own lags, a profile
+    B = 8
+    xb, lb = x[:B, : int(lens[:B].max())], lens[:B]
+    batch_audio = float(lb.sum()) / srate
+    t_batch, (fb, nb) = wall_s(lambda: modspec.modulation_spectrum_batch(xb, lb, cfg,
+                                                                         device=dev))
+    r, _ = modspec.modulation_spectrum_lags(xb, lb, cfg, device=dev)
+    P = r.shape[0]
+    k1 = {}
+    for unity in (False, True):
+        got = lpc_cepstra(r, cfg.order, cfg.coeff_n, unity_gain=unity)
+        ref = lpc_cepstra_reference(r, cfg.order, cfg.coeff_n, unity_gain=unity)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        k_err, k_t, k_rel = cep_agreement(f"modspec lags P={P} unity_gain={unity}", got, ref)
+        assert k_t <= MODSPEC_K1_TOL and k_rel <= MODSPEC_K1_REL, (unity, k_t, k_rel)
+        k1[unity] = (k_err,
+                     graph_ms(lambda u=unity: lpc_cepstra(r, cfg.order, cfg.coeff_n,
+                                                          unity_gain=u)),
+                     cuda_ms(lambda u=unity: lpc_cepstra_reference(r, cfg.order, cfg.coeff_n,
+                                                                   unity_gain=u),
+                             reps=1, repeats=3))
+    bound, by = k1_bound_ms(P, cfg.order, cfg.coeff_n)
+    device_breakdown(f"modulation_spectrum_batch, {B} utterances",
+                     lambda: modspec.modulation_spectrum_batch(xb, lb, cfg, device=dev))
+    for name, (t_card, t_cpu, err, p99, share, scale) in rows.items():
+        log(f"[modspec] {name}: CLI on the card {t_card:.2f} s for {len(lens)} utterances "
+            f"({audio_s:.1f} s audio) = {audio_s / t_card:.1f}x real time, K1 launches "
+            f"{launches[name]}; CPU {t_cpu:.2f} s for {MODSPEC_CPU_UTTS}; |card - cpu| / scale "
+            f"({scale:.3e}): max {err:.3e}, p99 {p99:.3e}, share > {MODSPEC_COMPLEX_TOL} "
+            f"{share:.2e}")
+    log(f"[modspec] complex float64, {k} utterances: max|card - cpu| / scale {err64:.3e} "
+        f"(limit {MODSPEC_F64_TOL}); card float32 against card float64: max {d32.max():.3e}, "
+        f"share > {MODSPEC_COMPLEX_TOL} {share32:.2e}")
+    for unity, (k_err, k_ms, p_ms) in k1.items():
+        log(f"[k1] modspec lags P={P} order={cfg.order} lim={cfg.coeff_n} unity_gain={unity}: "
+            f"max|kernel - plain|={k_err:.3e} kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} "
+            f"bound_ms={bound:.5f} ({by}) share_of_bound={bound / k_ms:.3f}")
+    log(f"[modspec] modulation_spectrum_batch, {B} utterances ({batch_audio:.1f} s audio, "
+        f"{P} LPC rows): {t_batch * 1e3:.2f} ms/batch = {batch_audio / t_batch:.1f}x real "
+        f"time; phase 11 (b) took {time.perf_counter() - t_phase:.1f} s")
+    return launches["default"]
+
+
+def incremental_phase(e2e, dev):
+    """Phase 11 (c): phase 5's search (beam 10, ctc_weight 0.3, the RNNLM,
+    max_len 100) on phase 5's 32 encoded utterances, KV-cached against
+    full-prefix: the same hypotheses (a difference only at a near-tie: the
+    best scores within INCR_SCORE_REL) and best scores within
+    INCR_SCORE_REL, relative; ms a step both ways."""
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import (
+        beam_search_encoded,
+        tokens_to_list,
+    )
+
+    t_phase = time.perf_counter()
+    asr, lm = e2e["asr"], e2e["lm"]
+    mem, enc_len, ctc = e2e["mem_all"], e2e["enc_len_all"], e2e["ctc_all"]
+    eos = asr.cfg.eos_id
+
+    def search(incremental, n=len(enc_len), max_len=E2E_MAX_LEN):
+        return beam_search_encoded(asr, mem[:n], enc_len[:n], ctc[:n], lm=lm, max_len=max_len,
+                                   incremental=incremental, **E2E_BEAM)
+
+    search(True, n=2, max_len=5)  # first launches of the step's shapes
+    t_full, (tf, sf) = _synced(lambda: search(False))
+    t_inc, (ti, si) = _synced(lambda: search(True))
+    steps = int((tf[0, 0] >= 0).sum()) - 1
+    assert torch.isfinite(si).all() and ti.shape == tf.shape
+    B = len(enc_len)
+    hf = [tokens_to_list(tf[b], sf[b], eos) for b in range(B)]
+    hi = [tokens_to_list(ti[b], si[b], eos) for b in range(B)]
+    best_f, best_i = sf.max(1).values, si.max(1).values
+    rel = ((best_i - best_f).abs() / best_f.abs()).max().item()
+    same = sum(a == b for a, b in zip(hf, hi))
+    assert rel <= INCR_SCORE_REL, (rel, best_f, best_i)
+    log(f"[incremental] phase 5's model, {B} utterances, beam {E2E_BEAM['beam_size']}, RNNLM, "
+        f"max_len {E2E_MAX_LEN} ({steps} steps run): token-identical {same} of {B}; best "
+        f"score rel err {rel:.3e} (limit {INCR_SCORE_REL}); full-prefix {t_full * 1e3:.1f} ms = "
+        f"{t_full / steps * 1e3:.2f} ms/step, KV-cached {t_inc * 1e3:.1f} ms = "
+        f"{t_inc / steps * 1e3:.2f} ms/step; phase 11 (c) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2243,8 +2559,14 @@ def main():
         conf_launches, conf_stream_launches = conformer_phase(x, lens, e2e, fa, na, rng, dev,
                                                               tmp)
         log(f"[phase10] {time.perf_counter() - t10:.2f} s")
+        # ---- 11. precision high, the modulation spectrum, the KV-cached decoder ----
+        t11 = time.perf_counter()
+        high_precision_phase(x, lens, e2e, fa, na, dev)
+        modspec_launches = modspec_phase(x, lens, dev, tmp)
+        incremental_phase(e2e_model, dev)
+        log(f"[phase11] {time.perf_counter() - t11:.2f} s")
 
-    # ---- 11. every kernel of the port ----
+    # ---- 12. every kernel of the port ----
     log(json.dumps({"kernels": [{
         "name": "lpc_cepstra",
         "route": "cuda",
@@ -2257,7 +2579,8 @@ def main():
                              "transcribe": transcribe_launches,
                              "hybrid_decode": decode_launches,
                              "conformer_e2e": conf_launches,
-                             "conformer_stream": conf_stream_launches},
+                             "conformer_stream": conf_stream_launches,
+                             "modspec": modspec_launches},
         "max_abs_err": main_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -2272,7 +2595,7 @@ def main():
     # names the card and its power limit beside the numbers above
     log(smi)
 
-    # ---- 12. contract line ----
+    # ---- 13. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,11 @@ computeFDLPSpectrogram.py :240-262), running the port on the card.
     python -m speech_recognition_tools_tpu_torch.cli.compute_fdlp_spectrogram \
         wav.scp out/feats [--nfilters 80 --order 150 ...] [--device cpu]
 
---profile_dir traces the extraction with torch.profiler. Flags whose
+--profile_dir traces the extraction with torch.profiler; --precision high
+(alias mixed) computes in float64 from the window multiply on. Flags whose
 modules are not yet ported (--add_noise other than none / clean,
---add_reverb, --data_parallel, --precision high/mixed) raise
-NotImplementedError naming their ROADMAP item.
+--add_reverb, --data_parallel) raise NotImplementedError naming their
+ROADMAP item.
 """
 
 import argparse
@@ -47,7 +48,8 @@ def get_parser():
                         help="not yet ported")
     parser.add_argument("--precision", default="fast",
                         choices=["fast", "mixed", "high"],
-                        help="only 'fast' is ported")
+                        help="'fast' (float32) or 'high' (float64 from the "
+                             "window multiply on; 'mixed' is an alias)")
     parser.add_argument("--random_jitter", action="store_true",
                         help="enable the reference's +-1 frame OLA jitter "
                              "(drawn from a torch.Generator seeded 0, so "
@@ -71,9 +73,6 @@ def main(argv=None):
 
     args = get_parser().parse_args(argv)
     check_unported(args)
-    if args.precision != "fast":
-        raise NotImplementedError(f"--precision {args.precision} is not yet ported "
-                                  "(ROADMAP Queue 1 item 1: precision='high')")
     start = time.time()
     print(f"{sys.argv[0]}: Extracting features....")
 

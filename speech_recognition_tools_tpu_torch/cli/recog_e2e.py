@@ -136,7 +136,7 @@ def main(argv=None):
         raise NotImplementedError("--ring_attention is not yet ported")
     if args.compute_dtype != "float32":
         raise NotImplementedError(f"--compute_dtype {args.compute_dtype} is not yet ported "
-                                  "(ROADMAP Queue 1 item 4: bf16 compute)")
+                                  "(ROADMAP Queue 1 item 1: bf16 compute)")
 
     import torch
 

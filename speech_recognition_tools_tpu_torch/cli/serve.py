@@ -295,7 +295,7 @@ def make_server(model_dir, ckpt="final_avg", host="127.0.0.1", port=0, max_strea
     are built here, before the first connection."""
     if int8:
         raise NotImplementedError("int8 encoder weights (infer/quantize.py) are not yet ported "
-                                  "(ROADMAP Queue 1 item 8: int8 serving)")
+                                  "(ROADMAP Queue 1 item 5: int8 serving)")
     from speech_recognition_tools_tpu_torch.cli.recog_e2e import _load
     from speech_recognition_tools_tpu_torch.infer.streaming_asr import (
         load_manifest_cmvn,
@@ -322,7 +322,7 @@ def main(argv=None):
     args = get_parser().parse_args(argv)
     if args.int8:
         raise NotImplementedError("--int8 (infer/quantize.py) is not yet ported "
-                                  "(ROADMAP Queue 1 item 8: int8 serving)")
+                                  "(ROADMAP Queue 1 item 5: int8 serving)")
     overrides = {k: getattr(args, k)
                  for k in ("srate", "nfilters", "fduration", "order", "coeff_num")}
     try:

@@ -182,13 +182,13 @@ def resolve_init_checkpoint(path):
 def main(argv=None):
     args = get_parser().parse_args(argv)
     if args.data_parallel:
-        raise NotImplementedError("--data_parallel is not yet ported (ROADMAP Queue 1 item 10: "
+        raise NotImplementedError("--data_parallel is not yet ported (ROADMAP Queue 1 item 7: "
                                   "the parallel paths)")
     if args.tensor_parallel > 1:
-        raise NotImplementedError("--tensor_parallel is not yet ported (ROADMAP Queue 1 item 10: "
+        raise NotImplementedError("--tensor_parallel is not yet ported (ROADMAP Queue 1 item 7: "
                                   "the parallel paths)")
     if args.pipeline_parallel > 1:
-        raise NotImplementedError("--pipeline_parallel is not yet ported (ROADMAP Queue 1 item 10: "
+        raise NotImplementedError("--pipeline_parallel is not yet ported (ROADMAP Queue 1 item 7: "
                                   "the parallel paths)")
 
     import torch

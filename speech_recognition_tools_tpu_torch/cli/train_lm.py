@@ -22,8 +22,8 @@ jax.random's bits); the batches are shuffled by numpy as in the JAX CLI.
 import argparse
 import os
 
-_LSTM = "--cell lstm is not yet ported (ROADMAP Queue 1 item 5: the lstm RNNLM cell)"
-_WORD = ("--unit word is not yet ported (ROADMAP Queue 1 item 8: word-level LMs and the "
+_LSTM = "--cell lstm is not yet ported (ROADMAP Queue 1 item 2: the lstm RNNLM cell)"
+_WORD = ("--unit word is not yet ported (ROADMAP Queue 1 item 5: word-level LMs and the "
          "look-ahead word LM)")
 
 

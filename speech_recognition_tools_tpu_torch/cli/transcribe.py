@@ -88,7 +88,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.int8:
         raise NotImplementedError("--int8 (infer/quantize.py) is not yet ported "
-                                  "(ROADMAP Queue 1 item 8: int8 serving)")
+                                  "(ROADMAP Queue 1 item 5: int8 serving)")
 
     from speech_recognition_tools_tpu_torch.infer.streaming_asr import OnlineASRPipeline
     from speech_recognition_tools_tpu_torch.io.scp import read_scp

@@ -27,6 +27,11 @@ Where the port differs in form, not in result:
     as in jax.lax.top_k;
   - scores are float32 throughout (the JAX search holds them in float64
     under x64).
+
+incremental=True runs the decoder in its KV-cached decode mode (one token
+a step against each layer's key/value cache, the caches reordered with the
+beams every step) instead of the full-prefix pass; the search is
+token-identical either way.
 """
 
 import time
@@ -78,7 +83,7 @@ def _top_k(flat: torch.Tensor, k: int):
 @torch.no_grad()
 def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
                         max_len=100, ctc_weight=0.3, penalty=0.0, lm=None,
-                        lm_weight=1.0, timings=None):
+                        lm_weight=1.0, timings=None, incremental=False):
     """The search proper, from the encoder's output (model.encode).
 
     memory (B, T2, adim), enc_len (B,), ctc_logits (B, T2, V), all on the
@@ -87,6 +92,10 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
     timings: optional dict; when given, each step synchronises the device
     between its parts and adds their seconds under "decoder", "ctc",
     "lm", "topk" and "update" (the search is slower so measured).
+
+    incremental: run the decoder KV-cached (model.decode_incremental), its
+    cache initialised from the token buffer and its positional table
+    max(max_len + 1, 16) rows long, as beam_search_jit(incremental=True).
 
     Returns (tokens (B, K, max_len+1) int64 with sos at 0 and -1 padding,
     scores (B, K) float32); feed each row to tokens_to_list.
@@ -113,11 +122,17 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
     r_state = init_prefix_state(ctc_logp, enc_len, K, cfg.blank_id)
     last_f = (enc_len - 1).clamp(0, T2 - 1)
     lm_state = lm.init_state(B * K) if lm is not None else None
+    cache = model.decode_init_cache(tokens, mem, mem_len) if incremental else None
+    pe_len = max(max_len + 1, 16)
 
     tick()
     for step in range(max_len):
-        dec_logits = model.decode_step(tokens[:, : step + 1], mem, mem_len)
-        att_logp = torch.log_softmax(dec_logits[:, step], dim=-1).view(B, K, V)
+        if incremental:
+            dec_logits = model.decode_incremental(tokens[:, step : step + 1], step, mem,
+                                                  mem_len, cache, pe_len=pe_len)[:, 0]
+        else:
+            dec_logits = model.decode_step(tokens[:, : step + 1], mem, mem_len)[:, step]
+        att_logp = torch.log_softmax(dec_logits, dim=-1).view(B, K, V)
         new_att = att_cum[..., None] + att_logp
         tick("decoder")
         new_lm = lm_cum[..., None]
@@ -147,6 +162,8 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
 
         rows = (utt * K + beam_idx).view(-1)  # parent row of each new beam
         tokens = tokens[rows]
+        if incremental:
+            cache = model.reorder_cache(cache, rows)
         tokens[:, step + 1] = tok.view(-1)
         ends = finished.gather(1, beam_idx) | (tok == cfg.eos_id)
         att_cum = new_att.view(B, K * V).gather(1, top_idx)
@@ -168,14 +185,15 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
 
 def beam_search_batched(model, feats, lengths, *, beam_size=10, max_len=100,
                         ctc_weight=0.3, penalty=0.0, lm=None, lm_weight=1.0,
-                        device="cuda"):
+                        device="cuda", incremental=False):
     """Batched joint CTC/attention beam search: B independent searches in
     one (B x K)-wide loop, after one batched encoder pass.
 
     feats (B, T, D), lengths (B,): numpy arrays or tensors, moved to
     `device`, which must be the model's (and the LM's). `device` defaults
     to "cuda" and raises without a card. Returns (tokens (B, K,
-    max_len+1), scores (B, K)); see beam_search_encoded.
+    max_len+1), scores (B, K)); see beam_search_encoded (`incremental`
+    runs the KV-cached decoder).
     """
     dev = resolve_device(device)
     feats = torch.as_tensor(feats).to(device=dev, dtype=torch.float32)
@@ -184,7 +202,8 @@ def beam_search_batched(model, feats, lengths, *, beam_size=10, max_len=100,
         memory, enc_len, ctc_logits = model.encode(feats, lengths)
     return beam_search_encoded(
         model, memory, enc_len, ctc_logits, beam_size=beam_size, max_len=max_len,
-        ctc_weight=ctc_weight, penalty=penalty, lm=lm, lm_weight=lm_weight)
+        ctc_weight=ctc_weight, penalty=penalty, lm=lm, lm_weight=lm_weight,
+        incremental=incremental)
 
 
 def tokens_to_list(tokens, scores, eos_id):

@@ -1,4 +1,5 @@
-"""FDLP spectrogram, fast (float32) mode, for a batch of waveforms.
+"""FDLP spectrogram for a batch of waveforms, fast (float32) and high
+(float64) precision.
 
 Port of speech_recognition_tools_tpu/dsp/fdlp.py (reference:
 featgen/computeFDLPSpectrogram.py getFeats, :29-237):
@@ -18,7 +19,16 @@ on a CUDA float32 batch they go through the hand-written kernel K1
 (ops/lpc_cepstra.py), elsewhere through the plain Levinson + cepstrum
 loops.
 
-Numerics kept from the JAX fast path: the f32-only white-noise ridge
+precision="high" (alias "mixed") computes in float64 from the window
+multiply on: the DCT, the lags (support-compacted,
+ops/autocorr.py::banded_autocorr_compact, whenever the work type is
+float64), the LPC stage (the blocked Schur/Szego solver by default: K1 is
+float32-only in both packages, so in float64 this stage runs as torch ops
+on either device, as the JAX package runs XLA scans there), the envelope
+projection and its exp, and the final log. The overlap-add and the output
+are of the I/O dtype.
+
+Numerics kept from the JAX package: the f32-only white-noise ridge
 r0 *= 1 + 1e-4 (the validated value), the envelope exponent cap (75 in
 float32, 700 in float64), the clip at 1e-14 before the log, and output
 lengths ceil(n * frate / srate).
@@ -34,20 +44,26 @@ from speech_recognition_tools_tpu_torch.device import configure_cuda, resolve_de
 from speech_recognition_tools_tpu_torch.dsp.filterbanks import parse_fbank_type
 from speech_recognition_tools_tpu_torch.ops.autocorr import (
     banded_autocorr,
+    banded_autocorr_compact,
+    banded_support_plan,
     banded_supports_separable,
 )
+from speech_recognition_tools_tpu_torch.ops.cepstrum import lpc_to_cepstrum
 from speech_recognition_tools_tpu_torch.ops.dct import dct2
 from speech_recognition_tools_tpu_torch.ops.framing import (
     frame_count,
     frame_params,
     frame_signal,
 )
+from speech_recognition_tools_tpu_torch.ops.levinson import lpc_from_autocorr
 from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import (
     lpc_cepstra,
     lpc_cepstra_reference,
 )
 from speech_recognition_tools_tpu_torch.ops.ola import ola_positions, overlap_add
 from speech_recognition_tools_tpu_torch.ops.windows import WINDOWS
+
+HIGH_PRECISIONS = ("high", "mixed")
 
 
 @dataclass(frozen=True)
@@ -67,11 +83,14 @@ class FdlpConfig:
     gamma_weight: str = "None"  # 'scale,shape,pk'
     lifter_config: tuple | None = None
     window: str = "hamming"
-    # 'fast' (f32 work dtype) is ported; 'high' / 'mixed' are not yet
+    # 'fast' (the I/O dtype throughout) | 'high' (float64 from the window
+    # multiply on; 'mixed' is an alias)
     precision: str = "fast"
-    # LPC + cepstrum backend: 'auto' = kernel K1 on a CUDA float32 batch
-    # (its plain version on the CPU), the plain loops in float64; 'scan' =
-    # always the plain Levinson + cepstrum loops
+    # LPC + cepstrum backend: 'auto' = K1 in float32 (its plain version on
+    # the CPU) and 'blocked:15' in float64; 'fused' = K1; 'scan' (or
+    # 'scan:unroll=N', the same computation) = the plain Levinson and
+    # cepstrum loops; 'blocked[:B]' = the blocked Schur/Szego Levinson, B
+    # steps a block (default 15), then the cepstrum loop
     lpc_backend: str = "auto"
 
     @property
@@ -135,31 +154,58 @@ def _host_constants(cfg: FdlpConfig):
 
 @lru_cache(maxsize=8)
 def _device_constants(cfg: FdlpConfig, dtype: torch.dtype, device: torch.device):
-    """The host constants as tensors of the work dtype on `device`."""
+    """The host constants as tensors of `dtype` on `device`."""
     c = _host_constants(cfg)
     return {k: torch.as_tensor(c[k], dtype=dtype, device=device)
             for k in ("fbank", "win", "weights", "cosmat", "env_win")}
+
+
+@lru_cache(maxsize=32)
+def _support_plan(cfg: FdlpConfig):
+    return banded_support_plan(_host_constants(cfg)["fbank"], cfg.order + 2)
+
+
+def _work_dtype(cfg: FdlpConfig, dtype: torch.dtype) -> torch.dtype:
+    """float64 at high precision, else the I/O dtype."""
+    return torch.float64 if cfg.precision in HIGH_PRECISIONS else dtype
+
+
+def _resolve_backend(backend: str, dtype: torch.dtype) -> str:
+    """What `backend` runs at work type `dtype`: 'fused', 'scan' or
+    'blocked:B'."""
+    if backend == "auto":
+        return "blocked:15" if dtype == torch.float64 else "fused"
+    if backend == "blocked":
+        return "blocked:15"
+    if backend == "scan" or backend.startswith("scan:unroll="):
+        return "scan"
+    if backend == "fused" or (backend.startswith("blocked:")
+                              and backend.split(":", 1)[1].isdigit()):
+        return backend
+    raise ValueError(f"unknown lpc_backend {backend!r}")
 
 
 def _lpc_cepstra(r, order, coeff_num, backend="auto"):
     """(P, nb, order+2) lags -> (P, nb, coeff_num) cepstra."""
     P, nb, L = r.shape
     flat = r.reshape(P * nb, L)
-    if backend == "auto" and r.dtype == torch.float32:
+    backend = _resolve_backend(backend, r.dtype)
+    if backend == "fused":
         cep = lpc_cepstra(flat, order, coeff_num)
-    elif backend in ("auto", "scan"):
+    elif backend == "scan":
         cep = lpc_cepstra_reference(flat, order, coeff_num)
     else:
-        raise NotImplementedError(f"lpc_backend={backend!r} is not yet ported")
+        block = int(backend.split(":", 1)[1])
+        cep = lpc_to_cepstrum(*lpc_from_autocorr(flat, order, block=block), coeff_num)
     return cep.reshape(P, nb, coeff_num)
 
 
 def _setup(cfg: FdlpConfig, dtype: torch.dtype, device):
-    """(device, host constants, device constants) for a run of `cfg`."""
-    if cfg.precision != "fast":
-        raise NotImplementedError(
-            f"FdlpConfig(precision={cfg.precision!r}) is not yet ported"
-        )
+    """(device, host constants, device constants of `dtype`) for a run of
+    `cfg`."""
+    if cfg.precision not in ("fast",) + HIGH_PRECISIONS:
+        raise ValueError(f"unknown precision {cfg.precision!r}")
+    _resolve_backend(cfg.lpc_backend, dtype)
     dev = resolve_device(device)
     if dev.type == "cuda":
         configure_cuda()
@@ -171,10 +217,17 @@ def _setup(cfg: FdlpConfig, dtype: torch.dtype, device):
 
 
 def _window_lags(windows, cfg: FdlpConfig, k):
-    """(P, flen) raw analysis windows -> (P, nb, order+2) lags: window,
-    DCT-II / sqrt(2 srate fduration), banded autocorrelation, and in
-    float32 the white-noise ridge."""
-    cos_dct = dct2(windows * k["win"]) * (1.0 / np.sqrt(2 * int(cfg.srate * cfg.fduration)))
+    """(P, flen) raw analysis windows -> (P, nb, order+2) lags of the work
+    type: window, DCT-II / sqrt(2 srate fduration), banded autocorrelation
+    (support-compacted in float64), and in float32 the white-noise ridge.
+    `k` are the device constants of the I/O dtype."""
+    work = _work_dtype(cfg, windows.dtype)
+    kw = _device_constants(cfg, work, windows.device)
+    cos_dct = dct2(windows.to(work) * kw["win"]) * (
+        1.0 / np.sqrt(2 * int(cfg.srate * cfg.fduration)))
+    if work == torch.float64:
+        return banded_autocorr_compact(cos_dct, kw["fbank"], cfg.order + 2,
+                                       _support_plan(cfg))
     r = banded_autocorr(cos_dct, k["fbank"], cfg.order + 2)
     if r.dtype == torch.float32:
         # f32 only: a tiny diagonal loading bounds the LPC pole radii on
@@ -186,19 +239,22 @@ def _window_lags(windows, cfg: FdlpConfig, k):
 
 
 def window_envelopes(windows, cfg: FdlpConfig, k):
-    """(P, flen) raw analysis windows -> (P, nb, kk) Hilbert envelopes:
-    the lags, LPC cepstra (K1 on a CUDA float32 batch), the cepstral
-    weights, exp(cepstra @ cos-DFT) with the exponent capped, and the
-    envelope window. The batch path and dsp/streaming.py's streamer both
-    run every analysis window through this one function. `k` is
-    _device_constants(cfg, windows.dtype, windows.device)."""
+    """(P, flen) raw analysis windows -> (P, nb, kk) Hilbert envelopes of the
+    I/O dtype: the lags, LPC cepstra (K1 on a CUDA float32 batch), the
+    cepstral weights, exp(cepstra @ cos-DFT) with the exponent capped (all
+    of the work type), and the envelope window. The batch path and
+    dsp/streaming.py's streamer both run every analysis window through this
+    one function. `k` is _device_constants(cfg, windows.dtype,
+    windows.device)."""
     r = _window_lags(windows, cfg, k)
+    kw = _device_constants(cfg, r.dtype, r.device)
     ceps = _lpc_cepstra(r, cfg.order, cfg.coeff_num, backend=cfg.lpc_backend)
-    log_env = torch.einsum("pbc,ck->pbk", ceps * k["weights"], k["cosmat"])
+    log_env = torch.einsum("pbc,ck->pbk", ceps * kw["weights"], kw["cosmat"])
     # a pole on a band harmonic can push the log-envelope past exp's range;
     # saturate so exp(.) summed over the OLA stays finite
-    env_cap = 700.0 if windows.dtype == torch.float64 else 75.0
-    return torch.exp(torch.clamp(log_env, max=env_cap)) * k["env_win"]
+    env_cap = 700.0 if r.dtype == torch.float64 else 75.0
+    env = torch.exp(torch.clamp(log_env, max=env_cap)).to(windows.dtype)
+    return env * k["env_win"]
 
 
 def _frames(signals, num_samples, fp, dtype, dev):
@@ -215,7 +271,8 @@ def _frames(signals, num_samples, fp, dtype, dev):
 def fdlp_lags(signals, num_samples, cfg: FdlpConfig = FdlpConfig(), *,
               dtype: torch.dtype = torch.float32, device="cuda"):
     """The per-(utterance x frame x band) autocorrelation lags that the LPC
-    stage of fdlp_spectrogram_batch solves, with the f32 ridge applied.
+    stage of fdlp_spectrogram_batch solves (float64 at high precision),
+    with the f32 ridge applied.
 
     Returns (lags (B * max_frames, nfilters, order + 2), num_frames (B,)).
     On CUDA it switches TF32 off process-wide (device.configure_cuda).
@@ -252,7 +309,8 @@ def fdlp_spectrogram_batch(
       cfg: configuration.
       jitter: optional (B, max_frames) integer array in {0, 1} enabling the
         reference's +-1-frame OLA jitter; None pins it to 0.
-      dtype: work dtype (float32; float64 for CPU parity checks).
+      dtype: I/O dtype (float32; float64 for CPU parity checks). At
+        precision="high" the work type is float64 either way.
       device: "cuda" (default) or "cpu". On CUDA this switches TF32 off
         process-wide (device.configure_cuda).
 
@@ -279,5 +337,6 @@ def fdlp_spectrogram_batch(
         jitter = torch.as_tensor(jitter).to(device=dev, dtype=torch.int64)
         pos, valid = ola_positions(max_frames, c["hop"], c["kk"], c["kkb2"], jitter)
         feats = overlap_add(env, pos, valid, num_frames, out_len, max_out)
-    feats = torch.log(torch.clamp(feats, min=1e-14))
+    feats = torch.clamp(feats, min=1e-14)
+    feats = torch.log(feats.to(_work_dtype(cfg, dtype))).to(dtype)
     return feats.transpose(1, 2), out_len

@@ -737,7 +737,7 @@ class OnlineASRPipeline:
         serving.json (FdlpConfig() defaults and no CMVN without one)."""
         if int8:
             raise NotImplementedError("int8 encoder weights (infer/quantize.py) are not yet ported "
-                                      "(ROADMAP Queue 1 item 8: int8 serving)")
+                                      "(ROADMAP Queue 1 item 5: int8 serving)")
         from speech_recognition_tools_tpu_torch.cli.recog_e2e import _load
 
         model, _cfg, vocab = _load(model_dir, ckpt, device=device)

@@ -3,8 +3,9 @@
 Port of speech_recognition_tools_tpu/models/transformer_asr.py:
 TransformerASRConfig, chunk_attention_mask, posenc_host, _embed_scale,
 _MHABlock, _ConformerBlock, Conv2dSubsampling, TransformerEncoder (either
-block type), TransformerDecoder (its full-prefix mode), TransformerASR
-(`forward`, `encode`, `decode_step`),
+block type), TransformerDecoder (full-prefix and KV-cached decode modes),
+TransformerASR (`forward`, `encode`, `decode_step`, `decode_init_cache`,
+`decode_incremental`),
 greedy_ctc, and the training half: the joint CTC/attention loss
 (`ctc_loss`, `joint_loss`, `asr_loss`), `noam_schedule` and
 `average_checkpoints`. The reference's headline model is ESPnet's
@@ -40,9 +41,16 @@ padding reaches the last conv_kernel // 2 valid frames once that bias is
 nonzero. The port computes exactly this, as the JAX package does; the
 causal conv of attn_chunk > 0 looks only left and is not affected.
 
+The KV-cached decode mode is flax's decode=True attention: each decoder
+layer's self-attention keeps a key/value cache as long as the dummy tokens
+it was initialised from (max_len + 1), writes a step's key and value at
+the cache index and attends to the positions up to it, with no token mask;
+the position's encoding is the row `pos` of the sinusoidal table.
+Cross-attention is computed from the memory at every step, as in the JAX
+package.
+
 io/jax_params.py carries a flax parameter tree over in both directions.
-The compute type is float32 (bf16 raises NotImplementedError); the
-KV-cached incremental decoder is not ported.
+The compute type is float32 (bf16 raises NotImplementedError).
 """
 
 import math
@@ -164,7 +172,10 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(dim, dim, device=device)
         self.out = nn.Linear(dim, dim, device=device)
 
-    def forward(self, q_in, kv_in, mask):
+    def forward(self, q_in, kv_in, mask, kv_cache=None, index=None):
+        """kv_cache: a layer's {"k", "v"} (B, H, L, hd) cache (decode mode):
+        this call's keys and values are written at [index, index + Tq) and
+        the query attends to the whole cache under `mask`."""
         B, Tq, D = q_in.shape
         H, hd = self.heads, D // self.heads
 
@@ -174,6 +185,10 @@ class MultiHeadAttention(nn.Module):
         q = split(self.query(q_in)) / math.sqrt(hd)
         k = split(self.key(kv_in))
         v = split(self.value(kv_in))
+        if kv_cache is not None:
+            kv_cache["k"][:, :, index : index + Tq] = k
+            kv_cache["v"][:, :, index : index + Tq] = v
+            k, v = kv_cache["k"], kv_cache["v"]
         w = (q @ k.transpose(-1, -2)).masked_fill(~mask, torch.finfo(q.dtype).min)
         o = torch.softmax(w, dim=-1) @ v
         return self.out(o.transpose(1, 2).reshape(B, Tq, D))
@@ -199,9 +214,10 @@ class MHABlock(nn.Module):
         self.ff_out = nn.Linear(ff_dim, D, device=device)
         self.drop = nn.Dropout(cfg.dropout)
 
-    def forward(self, x, self_mask, memory=None, memory_mask=None):
+    def forward(self, x, self_mask, memory=None, memory_mask=None, kv_cache=None,
+                index=None):
         h = self.norm_self(x)
-        x = x + self.drop(self.self_attn(h, h, self_mask))
+        x = x + self.drop(self.self_attn(h, h, self_mask, kv_cache, index))
         if self.cross:
             x = x + self.drop(self.src_attn(self.norm_src(x), memory, memory_mask))
         h = self.drop(F.relu(self.ff_in(self.norm_ff(x))))
@@ -343,7 +359,8 @@ class TransformerEncoder(nn.Module):
 
 
 class TransformerDecoder(nn.Module):
-    """Full-prefix decoder: tokens (N, U) with -1 padding -> logits (N, U, V)."""
+    """Full-prefix decoder: tokens (N, U) with -1 padding -> logits (N, U, V);
+    `step` is one KV-cached step of decode mode."""
 
     def __init__(self, cfg: TransformerASRConfig, *, device=None):
         super().__init__()
@@ -368,6 +385,40 @@ class TransformerDecoder(nn.Module):
             h = layer(h, self_mask, memory, mem_mask)
         return self.output(self.after_norm(h))
 
+    def init_cache(self, batch: int, length: int, dtype, device):
+        """A zero key/value cache of `length` positions for each layer, its
+        index at 0."""
+        H = self.cfg.aheads
+        shape = (batch, H, length, self.cfg.adim // H)
+        return {"index": 0, "layers": [
+            {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in self.layers]}
+
+    def step(self, last_tokens, pos: int, memory, memory_len, cache, pe_len: int = 4096):
+        """One decode-mode step: last_tokens (N, 1) at position `pos` ->
+        logits (N, 1, V); writes each layer's key and value at the cache
+        index, then advances it."""
+        if not 0 <= pos < pe_len:
+            raise ValueError(f"position {pos} is outside the {pe_len}-row "
+                             "positional table")
+        index = cache["index"]
+        L = cache["layers"][0]["k"].shape[2]
+        if index >= L:
+            raise ValueError(f"the decode cache holds {L} positions; step {index} "
+                             "is past its end")
+        dev = last_tokens.device
+        pe = _posenc(pos + 1, self.cfg.adim, dev)[pos]
+        h = self.drop(self.embed(last_tokens.clamp_min(0)) * float(np.sqrt(self.cfg.adim))
+                      + pe)
+        self_mask = (torch.arange(L, device=dev) <= index)[None, None, None, :]
+        mem_mask = (torch.arange(memory.shape[1], device=dev)[None, :]
+                    < memory_len[:, None])[:, None, None, :]
+        for layer, kv in zip(self.layers, cache["layers"]):
+            h = layer(h, self_mask, memory, mem_mask, kv, index)
+        cache["index"] = index + 1
+        return self.output(self.after_norm(h))
+
 
 class TransformerASR(nn.Module):
     """Joint CTC/attention model: `forward` returns (ctc_logits,
@@ -385,7 +436,7 @@ class TransformerASR(nn.Module):
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype={cfg.compute_dtype!r} is not yet ported (float32 only; "
-                "ROADMAP Queue 1 item 4: bf16 compute)")
+                "ROADMAP Queue 1 item 1: bf16 compute)")
         dev = resolve_device(device)
         if dev.type == "cuda":
             configure_cuda()
@@ -432,6 +483,31 @@ class TransformerASR(nn.Module):
         -1-padded buffer)."""
         with _eval_mode(self):
             return self.decoder(tokens, memory, enc_len)
+
+    def decode_init_cache(self, dummy_tokens, memory, enc_len):
+        """The decode-mode cache sized by dummy_tokens (N, max_len + 1): zero
+        keys and values of memory's dtype and device, index 0 (what the
+        JAX method creates under mutable=['cache']; the full pass it also
+        runs is discarded there)."""
+        del enc_len
+        return self.decoder.init_cache(dummy_tokens.shape[0], dummy_tokens.shape[1],
+                                       memory.dtype, memory.device)
+
+    def decode_incremental(self, last_tokens, pos, memory, enc_len, cache, pe_len=4096):
+        """One KV-cached decoder step, without dropout: last_tokens (N, 1) at
+        position `pos` -> logits (N, 1, V), `cache` advanced in place. The
+        scores equal decode_step's at that position; pe_len must exceed the
+        largest position (the caller's max_len)."""
+        with _eval_mode(self):
+            return self.decoder.step(last_tokens, int(pos), memory, enc_len, cache,
+                                     pe_len=pe_len)
+
+    @staticmethod
+    def reorder_cache(cache, rows):
+        """The decode-mode cache with each layer's keys and values taken at
+        `rows` (the surviving beams' parents); the index is shared."""
+        return {"index": cache["index"],
+                "layers": [{k: v[rows] for k, v in kv.items()} for kv in cache["layers"]]}
 
 
 @contextmanager

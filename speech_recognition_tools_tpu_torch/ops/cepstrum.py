@@ -7,6 +7,9 @@ b = [1, -a_1..-a_p], zero-padded when p+1 < lim:
     cep[0] = log(sqrt(gg))
     cep[1] = b[1]
     cep[n] = sum_{m=1}^{n-1} (m/n) * b[n-m] * cep[m] + b[n]   (n >= 2)
+
+The recursion is dtype-generic: complex predictors (the complex-modulation
+path) take the complex log of the gain in their own dtype.
 """
 
 import torch
@@ -28,11 +31,13 @@ def lpc_to_cepstrum(xlpc: torch.Tensor, gg: torch.Tensor, lim: int) -> torch.Ten
     if pad:
         b = torch.cat([b, b.new_zeros(b.shape[:-1] + (pad,))], dim=-1)
     cep = b.new_zeros(b.shape[:-1] + (lim,))
+    if b.is_complex():
+        gg = gg.to(b.dtype)
     cep[..., 0] = torch.log(torch.sqrt(gg))
     if lim > 1:
         cep[..., 1] = b[..., 1]
     for n in range(2, lim):
-        m = torch.arange(1, n, dtype=b.dtype, device=b.device)
+        m = torch.arange(1, n, dtype=b.real.dtype, device=b.device)
         # b[n-m] for m = 1..n-1 is b[n-1], ..., b[1]
         win = torch.flip(b[..., 1:n], dims=(-1,))
         cep[..., n] = torch.sum((m / n) * win * cep[..., 1:n], dim=-1) + b[..., n]

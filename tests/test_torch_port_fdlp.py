@@ -135,12 +135,29 @@ def test_fdlp_finite_on_near_periodic_audio():
 
 
 def test_fdlp_rejects_unported_modes():
+    """precision='high' and lpc_backend='blocked' are ported (held to JAX
+    in tests/test_torch_port_precision.py); what is still refused is what
+    the JAX package refuses: StreamingFdlp takes the fast path only, with
+    the JAX package's ValueError. The batch high path agrees with JAX's
+    on this input within 1e-6."""
+    from speech_recognition_tools_tpu.dsp.streaming import StreamingFdlp as JaxStreamingFdlp
+    from speech_recognition_tools_tpu_torch.dsp.streaming import StreamingFdlp
+
+    for prec in ("high", "mixed"):
+        with pytest.raises(ValueError, match="fast") as want:
+            JaxStreamingFdlp(JaxFdlpConfig(nfilters=6, precision=prec))
+        with pytest.raises(ValueError, match="fast") as got:
+            StreamingFdlp(FdlpConfig(nfilters=6, precision=prec), device="cpu")
+        assert str(got.value) == str(want.value)
     x, lens = _ragged_batch()
-    with pytest.raises(NotImplementedError):
-        fdlp_spectrogram_batch(x, lens, FdlpConfig(precision="high"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        fdlp_spectrogram_batch(x, lens, FdlpConfig(lpc_backend="blocked"),
-                               device="cpu")
+    ref, nref = jax_fdlp(x, lens, JaxFdlpConfig(nfilters=6, precision="high"))
+    got, ngot = fdlp_spectrogram_batch(x, lens, FdlpConfig(nfilters=6, precision="high"),
+                                       device="cpu")
+    np.testing.assert_array_equal(ngot.numpy(), np.asarray(nref))
+    for b in range(2):
+        T = int(nref[b])
+        np.testing.assert_allclose(got[b, :T].numpy(), np.asarray(ref[b, :T]),
+                                   rtol=1e-6, atol=1e-6)
 
 
 def test_fdlp_cuda_default_raises_without_a_card():
@@ -190,11 +207,13 @@ def test_cli_matches_jax_cli(tmp_path):
 
 
 def test_cli_rejects_unported_flags(tmp_path):
+    """--precision high is ported (tests/test_torch_port_precision.py holds
+    its ark to the JAX CLI's); augmentation and data parallelism are not."""
     from speech_recognition_tools_tpu_torch.cli import compute_fdlp_spectrogram as tcli
 
     scp = _write_wavs(tmp_path)
     for extra in (["--add_noise", "babble,10"], ["--add_reverb", "small_room"],
-                  ["--data_parallel"], ["--precision", "high"]):
+                  ["--data_parallel"]):
         with pytest.raises(NotImplementedError):
             tcli.main([str(scp), str(tmp_path / "x"), "--device", "cpu", *extra])
     assert not os.path.exists(str(tmp_path / "x.ark"))

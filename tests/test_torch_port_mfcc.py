@@ -330,10 +330,12 @@ def test_profile_dir_writes_a_trace(tmp_path, cli, capsys):
 
 @pytest.mark.parametrize("cli", ["compute_mfcc", "compute_mel_spectrum",
                                  "compute_fdlp_spectrogram"])
-@pytest.mark.parametrize("extra,match", [(["--add_noise", "babble,10"], "item 9"),
-                                         (["--add_noise", "diff"], "item 9"),
-                                         (["--add_reverb", "small_room"], "item 9"),
-                                         (["--data_parallel"], "item 10")])
+@pytest.mark.parametrize("extra,match", [(["--add_noise", "babble,10"], "item 6"),
+                                         (["--add_noise", "diff"], "item 6"),
+                                         (["--add_reverb", "small_room"], "item 6"),
+                                         (["--data_parallel"], "item 7")],
+                         ids=["extra0-item 9", "extra1-item 9", "extra2-item 9",
+                              "extra3-item 10"])
 def test_unported_featgen_flags_raise(tmp_path, cli, extra, match):
     """Each unported flag raises NotImplementedError naming its ROADMAP
     item, before anything is read or written."""

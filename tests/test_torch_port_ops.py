@@ -89,7 +89,9 @@ def test_port_imports_no_jax():
 def test_import_checks_cover_the_serving_modules():
     """The two isolation tests above and below walk the whole package; the
     serving path's modules, the LM-training stage's, the hybrid decode
-    end's and the MFCC / mel front-ends' are among what they walk."""
+    end's, the MFCC / mel front-ends', the modulation spectrum's and the
+    high-precision FDLP and incremental decoder's are among what they
+    walk."""
     mods = set(_port_modules())
     for m in ("dsp.streaming", "infer.streaming_asr", "eval.wer", "cli.recog_e2e",
               "cli.serve", "cli.serve_client", "cli.transcribe",
@@ -98,7 +100,11 @@ def test_import_checks_cover_the_serving_modules():
               "decode.graph", "decode.wfst", "decode.lattice", "models.ngram_lm",
               "align.forced", "io.kaldi_ark", "io.scp", "io.native",
               "dsp.mfcc", "dsp.melspec", "utils.splice", "utils.transforms",
-              "utils.profiling", "cli.compute_mfcc", "cli.compute_mel_spectrum"):
+              "utils.profiling", "cli.compute_mfcc", "cli.compute_mel_spectrum",
+              "dsp.modspec", "cli.compute_modulation_spectrum", "ops.autocorr",
+              "ops.levinson", "ops.cepstrum", "ops.dct", "dsp.fdlp",
+              "cli.compute_fdlp_spectrogram", "models.transformer_asr",
+              "decode.beam_jit"):
         assert f"speech_recognition_tools_tpu_torch.{m}" in mods, m
 
 
