@@ -155,9 +155,32 @@ exits non-zero. Phases:
      search on its 32 encoded utterances with the KV-cached decoder against
      the full-prefix one: hypotheses token-identical (a difference only at
      a near-tie), best scores within INCR_SCORE_REL; ms a step both ways;
-  12. one JSON line describing every kernel of the port (`launches` is the
+  12. (a) bf16 mixed precision on phase 5's weights and phase 3's batch:
+     recognize_batch with compute_dtype bfloat16 (FDLP on K1, counted;
+     max_len 50) against the float32 chain in the same call (encoder ms, ms
+     a search step, CTC logits within BF16_VS_F32_REL of their scale, token-identical
+     share); bf16 on the card against bf16 on the CPU for 4 utterances
+     (BF16_DEVICE_REL; the KV-cached search with its bf16 cache);
+     train_e2e.main --compute_dtype bfloat16 on phase 7's egs (1 epoch of 2
+     batches of 32; float32 params and Adam state in the checkpoint), a
+     step timed against a float32 step on the same batch; the conformer of
+     phase 10 (b) encoding in bf16; 5 streams through a bf16 StreamBatcher
+     at attn_chunk 16 / left 4 against the offline bf16 chunked encode
+     (BF16_STREAM_REL). (b) train_lm.main --cell lstm at wsj_fdlp_e2e's LM
+     width on phase 9's transcripts (8 batches of 64, bptt 128): first-step
+     loss card against CPU (1e-5), ms a step and tokens/s; phase 5's search
+     fused with it, card against CPU, token-identical on 4 utterances. (c)
+     seeded checkpoints in the source toolkits' layouts (an ESPnet e2e
+     transformer at wsj_fdlp_e2e's widths with its units file, a
+     DefaultRNNLM 1 x 1000 LSTM, a reference nnetRNN .model dict at
+     timit_hybrid's widths) imported by import_torch_ckpt.main; recog_e2e
+     on the imported model with the imported LM over phase 7's egs, and
+     dump_outputs on the imported hybrid model over phase 6's egs; each
+     imported model held to its torch reconstruction on the card
+     (IMPORT_*_ATOL);
+  13. one JSON line describing every kernel of the port (`launches` is the
      hybrid main path's count, `launches_by_path` each path's);
-  13. the run's time, the card's name and power limit again, then the last
+  14. the run's time, the card's name and power limit again, then the last
      line: {"ok": true, "device": {...}}.
 """
 
@@ -306,6 +329,43 @@ MODSPEC_RUNS = {"default": [], "unity_gain": ["--set_unity_gain"],
 # phase 11 (c): the incremental (KV-cached) search against the full-prefix
 # one on phase 5's model: best scores within INCR_SCORE_REL, relative
 INCR_SCORE_REL = 1e-4
+
+# phase 12 (a): bf16 mixed precision (recipes/precision_ab.sh:33,
+# streaming_migration_ab.sh:50) on phase 5's model and phase 3's batch.
+# Limits, relative to the reference tensor's largest magnitude over valid
+# frames: bf16 against float32 CTC logits within BF16_VS_F32_REL (the
+# rounding of 12 bf16 encoder layers: about 4x the port's readings on the
+# CPU at 12/6 layers and adim 64 with seeded weights, 1.2e-2 for the
+# transformer and 1.4e-2 for the conformer); bf16 on the card against bf16 on the CPU
+# within BF16_DEVICE_REL, and the streamed bf16 memory against the offline
+# bf16 chunked encode within BF16_STREAM_REL (two orders of bf16 rounding;
+# the CPU tests hold port against JAX at 2.5e-2 and streamed against
+# offline at 1e-2 for 2 layers)
+# the bf16 and float32 searches run to BF16_MAX_LEN (phase 5 times max_len
+# 100 in float32; this keeps phase 12 near 90 s)
+BF16_MAX_LEN = 50
+BF16_CPU_UTTS, BF16_CPU_MAX_LEN = 4, 50
+BF16_VS_F32_REL = 6e-2
+BF16_DEVICE_REL = 5e-2
+BF16_STREAM_REL = 5e-2
+BF16_STREAMS = 5
+BF16_TRAIN_STEPS = 3
+# phase 12 (b): phase 9's LM stage with the lstm cell (ESPnet's default)
+# at wsj_fdlp_e2e's LM width; the fused search card against CPU on
+# LSTM_SEARCH_UTTS utterances at max_len LM_SEARCH_MAX_LEN
+LSTM_SEARCH_UTTS = 4
+# phase 12 (c): reference checkpoints built here in the source toolkits'
+# layouts at wsj_fdlp_e2e's widths (ESPnet e2e transformer; DefaultRNNLM
+# 1 x 1000 LSTM, embed 256) and timit_hybrid's (nnetRNN 3 x 512 GRU, 3,376
+# classes), imported, then held against their torch reconstructions on the
+# card in float32: the e2e model's encoder output, CTC and decoder logits
+# within IMPORT_E2E_ATOL (12 + 6 layers; the CPU tests hold 2 layers to
+# 6e-5), the LM's logits within IMPORT_LM_ATOL, the hybrid model's
+# dump_outputs logits within IMPORT_HYB_ATOL (cuDNN's GRU against the
+# port's over the utterance; phase 4 holds the port's GRU card vs CPU to
+# 1e-4)
+IMPORT_E2E_ATOL, IMPORT_LM_ATOL, IMPORT_HYB_ATOL = 1e-3, 1e-4, 1e-3
+IMPORT_UTTS, IMPORT_RECOG_MAX_LEN = 2, 50
 
 # (order, coeff_num) of the front-ends in recipes/configs: wsj/chime4/
 # conformer e2e, timit_hybrid, reverb
@@ -2295,6 +2355,582 @@ def incremental_phase(e2e, dev):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 12
+
+
+def _float_leaves(tree):
+    """The dtypes of the floating-point leaves of a nested dict."""
+    if isinstance(tree, dict):
+        return set().union(*(_float_leaves(v) for v in tree.values())) if tree else set()
+    a = np.asarray(tree)
+    return {a.dtype} if a.dtype.kind == "f" else set()
+
+
+def _scale_rel(got, want):
+    """max|got - want| over max|want| (float32 copies on the host)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def bf16_phase(e2e, x, lens, fdlp_cfg, fa, na, rng, dev, tmp):
+    """bf16 mixed precision at wsj_fdlp_e2e on phase 5's weights and phase
+    3's batch: recognize_batch in bf16 (FDLP on K1, counted) against the
+    float32 chain in the same call; bf16 on the card against bf16 on the
+    CPU; train_e2e.main --compute_dtype bfloat16 on phase 7's egs, with a
+    step timed against a float32 step on the same batch; the conformer
+    encoder in bf16; BF16_STREAMS streams through a StreamBatcher at
+    attn_chunk 16 / left 4 against the offline bf16 chunked encode.
+    Returns (K1's launches over the bf16 recognize_batch call, the CMVN'd
+    features and their frame counts)."""
+    import dataclasses
+    import os
+
+    from speech_recognition_tools_tpu_torch.cli import train_e2e
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import (
+        beam_search_encoded,
+        tokens_to_list,
+    )
+    from speech_recognition_tools_tpu_torch.infer.recognize import recognize_batch
+    from speech_recognition_tools_tpu_torch.infer.streaming_asr import StreamBatcher
+    from speech_recognition_tools_tpu_torch.io.jax_params import transformer_asr_from_jax
+    from speech_recognition_tools_tpu_torch.io.text import (
+        decode_tokens,
+        read_text_file,
+        save_vocab,
+    )
+    from speech_recognition_tools_tpu_torch.models.rnnlm import RNNLM
+    from speech_recognition_tools_tpu_torch.models.transformer_asr import (
+        TransformerASR,
+        TransformerASRConfig,
+        noam_schedule,
+    )
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import lpc_cepstra
+    from speech_recognition_tools_tpu_torch.train.checkpoint import load_checkpoint
+    from speech_recognition_tools_tpu_torch.train.optim import ClipAdam
+    from speech_recognition_tools_tpu_torch.utils.cmvn import apply_cmvn, cmvn_stats_masked
+
+    t_phase = time.perf_counter()
+    asr, lm, vocab = e2e["asr"], e2e["lm"], e2e["vocab"]
+    idim, eos, B = fdlp_cfg.nfilters, asr.cfg.eos_id, len(lens)
+    weights = asr.state_dict()
+
+    def twin(device, **extra):
+        m = TransformerASR(dataclasses.replace(asr.cfg, **extra), idim, device=device)
+        m.load_state_dict(weights)
+        return m.eval()
+
+    asr16 = twin(dev, compute_dtype="bfloat16")
+    mean, std = cmvn_stats_masked(fa, na)
+    feats, nfr = apply_cmvn(fa, mean, std), na
+
+    # the main path in bf16, counted, through the entry point a user calls
+    lpc_cepstra.launches = 0
+    texts16 = recognize_batch(x, lens, fdlp_cfg, mean, std, asr16, vocab, lm=lm, **E2E_BEAM,
+                              max_len=BF16_MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    launches = lpc_cepstra.launches
+    assert launches > 0, "the bf16 e2e path did not launch K1"
+
+    def encode(m, f=feats, n=nfr):
+        with torch.no_grad():
+            return m.encode(f, n)
+
+    def search(m, mem, n, ctc, fused=lm, max_len=BF16_MAX_LEN, incremental=False):
+        with torch.no_grad():
+            return beam_search_encoded(m, mem, n, ctc, lm=fused, max_len=max_len,
+                                       incremental=incremental, **E2E_BEAM)
+
+    t_enc32, (m32, l32, c32) = wall_s(lambda: encode(asr))
+    t_enc16, (m16, l16, c16) = wall_s(lambda: encode(asr16))
+    assert m16.dtype == torch.bfloat16 and c16.dtype == torch.float32 and torch.equal(l16, l32)
+    assert torch.isfinite(valid_rows(c16, l16)).all() and torch.isfinite(
+        valid_rows(m16.float(), l16)).all()
+    ctc_rel = _scale_rel(valid_rows(c16, l16), valid_rows(c32, l32))
+    logp_err = (valid_rows(torch.log_softmax(c16, -1), l16)
+                - valid_rows(torch.log_softmax(c32, -1), l32)).abs().max().item()
+    assert ctc_rel <= BF16_VS_F32_REL, ctc_rel
+    t_s32, (tk32, sc32) = _synced(lambda: search(asr, m32, l32, c32))
+    t_s16, (tk16, sc16) = _synced(lambda: search(asr16, m16, l16, c16))
+    assert sc16.dtype == torch.float32 and torch.isfinite(sc16).all(), sc16
+    n32, n16 = (int((t[0, 0] >= 0).sum()) - 1 for t in (tk32, tk16))
+    hyp32 = [tokens_to_list(tk32[b], sc32[b], eos) for b in range(B)]
+    hyp16 = [tokens_to_list(tk16[b], sc16[b], eos) for b in range(B)]
+    assert texts16 == [decode_tokens(h, vocab) for h in hyp16], "recognize_batch != its parts"
+    same = sum(a == b for a, b in zip(hyp16, hyp32))
+    log(f"[bf16] wsj_fdlp_e2e {B} utterances, phase 5's weights: recognize_batch in bf16, K1 "
+        f"launches {launches}; encoder {t_enc16 * 1e3:.2f} ms bf16 / {t_enc32 * 1e3:.2f} ms "
+        f"f32 a batch; beam search {t_s16 / n16 * 1e3:.2f} ms/step bf16 ({n16} steps) / "
+        f"{t_s32 / n32 * 1e3:.2f} ms/step f32 ({n32} steps); bf16 vs f32 CTC logits "
+        f"{ctc_rel:.3e} of their scale (limit {BF16_VS_F32_REL}), max|CTC logp diff| "
+        f"{logp_err:.3e}; hypotheses token-identical to f32 {same} of {B}")
+
+    # bf16 on the card against bf16 on the CPU, from the same features; the
+    # KV-cached search of each from the card's encoder output
+    k = BF16_CPU_UTTS
+    cpu16 = twin("cpu", compute_dtype="bfloat16")
+    cpu_lm = RNNLM(len(vocab), lm.embed.embedding_dim, lm.hidden, lm.layers, lm.cell,
+                   device="cpu")
+    cpu_lm.load_state_dict(lm.state_dict())
+    nk = nfr[:k].cpu()
+    fk = feats[:k, : int(nk.max())]
+    mg, lg, cg = encode(asr16, fk, nfr[:k])
+    mc, lc, cc = encode(cpu16, fk.cpu(), nk)
+    assert torch.equal(lg.cpu(), lc)
+    mem_dev = _scale_rel(valid_rows(mg.float().cpu(), lc), valid_rows(mc.float(), lc))
+    ctc_dev = _scale_rel(valid_rows(cg.cpu(), lc), valid_rows(cc, lc))
+    assert max(mem_dev, ctc_dev) <= BF16_DEVICE_REL, (mem_dev, ctc_dev)
+    tg, sg = search(asr16, mg, lg, cg, max_len=BF16_CPU_MAX_LEN, incremental=True)
+    tc, scc = search(cpu16, mg.cpu(), lc, cg.cpu(), fused=cpu_lm.eval(),
+                     max_len=BF16_CPU_MAX_LEN, incremental=True)
+    best_rel = ((sg.max(1).values.cpu() - scc.max(1).values).abs()
+                / scc.max(1).values.abs()).max().item()
+    assert best_rel <= BF16_DEVICE_REL, best_rel
+    same_dev = sum(tokens_to_list(tg[b], sg[b], eos) == tokens_to_list(tc[b], scc[b], eos)
+                   for b in range(k))
+    log(f"[bf16] card vs cpu, both bf16, {k} utterances: encoder memory {mem_dev:.3e}, CTC "
+        f"logits {ctc_dev:.3e} of their scale (limit {BF16_DEVICE_REL}); KV-cached search "
+        f"(bf16 cache) from the card's memory, max_len {BF16_CPU_MAX_LEN}: best scores rel "
+        f"{best_rel:.3e}, token-identical {same_dev} of {k}")
+
+    # train_e2e.main in bf16 on phase 7's egs: float32 checkpoints
+    egs7, text7 = os.path.join(tmp, "e2e_egs"), os.path.join(tmp, "e2e_text")
+    store, vocab_path = os.path.join(tmp, "e2e_bf16"), os.path.join(tmp, "e2e_bf16_vocab.json")
+    save_vocab(vocab, vocab_path)
+    E = dict(E2E_TRAIN, epochs=1, average_last=1)
+    argv = [egs7, text7, store, "--device", str(dev), "--compute_dtype", "bfloat16",
+            "--vocab", vocab_path]
+    argv += [a for kk, v in {**E2E_AM, **E}.items() if kk != "vocab_size"
+             for a in (f"--{kk}", str(v))]
+    t_main, losses = _synced(lambda: train_e2e.main(argv))
+    assert len(losses) == 1 and np.isfinite(losses[0]), losses
+    payload, meta = load_checkpoint(os.path.join(store, "epoch_1"))
+    assert meta["compute_dtype"] == "bfloat16"
+    assert _float_leaves(payload["params"]) == {np.dtype(np.float32)}
+    assert _float_leaves(payload["opt_state"]) == {np.dtype(np.float32)}
+    back = TransformerASR(asr16.cfg, idim, device=dev)
+    back.load_state_dict(transformer_asr_from_jax(payload["params"]))
+
+    # a step in bf16 against a step in float32, same batch and init
+    texts7 = read_text_file(text7)
+    batch = next(train_e2e.token_batches(egs7, texts7, vocab, E["batch_size"]))
+    batch = {kk: torch.as_tensor(v, device=dev) for kk, v in batch.items()}
+    step_ms, peak = {}, {}
+    for dt in ("float32", "bfloat16"):
+        cfg = TransformerASRConfig(**E2E_AM, dropout=E["dropout"], mtlalpha=E["mtlalpha"],
+                                   lsm_weight=E["lsm_weight"], compute_dtype=dt)
+        m = TransformerASR(cfg, idim, device=dev)
+        m.reset_parameters(torch.Generator().manual_seed(13))
+        opt = ClipAdam(noam_schedule(cfg.adim, E["warmup_steps"], E["transformer_lr"]),
+                       E["grad_clip"], b2=0.98)
+        params = dict(m.named_parameters())
+        state = {"opt": opt.init(params)}
+        step = train_e2e.make_train_step(m, cfg, opt)
+
+        def one():
+            state["opt"], loss, _ = step(state["opt"], batch)
+            return loss
+
+        one()
+        torch.cuda.reset_peak_memory_stats()
+        t_step, loss = wall_s(one, repeats=BF16_TRAIN_STEPS)
+        peak[dt] = torch.cuda.max_memory_allocated() / 2**30
+        step_ms[dt] = t_step * 1e3
+        assert torch.isfinite(loss) and loss.dtype == torch.float32
+        assert {p.dtype for p in params.values()} == {p.grad.dtype for p in params.values()} \
+            == {torch.float32}
+        assert {v.dtype for mom in ("mu", "nu") for v in state["opt"][mom].values()} == {
+            torch.float32}
+        del m, opt, params, state, step
+    log(f"[bf16-train] train_e2e.main --compute_dtype bfloat16 on phase 7's egs, 1 epoch of "
+        f"2 batches of {E['batch_size']}: {t_main:.2f} s, loss {losses[0]:.4f}; checkpoint "
+        f"params and Adam state float32; a step on the same batch: bf16 "
+        f"{step_ms['bfloat16']:.1f} ms / f32 {step_ms['float32']:.1f} ms, peak memory "
+        f"{peak['bfloat16']:.2f} / {peak['float32']:.2f} GiB")
+
+    # the conformer (phase 10 (b)'s configuration, seeded weights) in bf16
+    ccfg = TransformerASRConfig(**CONF_AM)
+    cparams = transformer_asr_from_jax(random_asr_params(rng, ccfg, idim))
+    confs = {}
+    for dt in ("float32", "bfloat16"):
+        m = TransformerASR(dataclasses.replace(ccfg, compute_dtype=dt), idim, device=dev)
+        m.load_state_dict(cparams)
+        confs[dt] = wall_s(lambda m=m.eval(): encode(m))
+    (t_c32, (_, cl32, cc32)), (t_c16, (cm16, cl16, cc16)) = confs["float32"], confs["bfloat16"]
+    assert cm16.dtype == torch.bfloat16 and torch.isfinite(valid_rows(cc16, cl16)).all()
+    conf_rel = _scale_rel(valid_rows(cc16, cl16), valid_rows(cc32, cl32))
+    assert conf_rel <= BF16_VS_F32_REL, conf_rel
+    log(f"[bf16-conformer] wsj_fdlp_conformer_e2e encoder on {B} utterances: {t_c16 * 1e3:.2f} "
+        f"ms bf16 / {t_c32 * 1e3:.2f} ms f32 a batch; CTC logits bf16 vs f32 {conf_rel:.3e} "
+        f"of their scale (limit {BF16_VS_F32_REL})")
+
+    # BF16_STREAMS streams through one StreamBatcher in bf16
+    s16 = twin(dev, compute_dtype="bfloat16", **SERVE_CHUNK)
+    sb = StreamBatcher(s16, max_streams=BF16_STREAMS, store_memory=True)
+    assert {c["kv"].dtype for c in sb.caches.values()} == {torch.bfloat16}
+    fb = [feats[b, : int(nfr[b])].cpu().numpy() for b in range(BF16_STREAMS)]
+    sids = [sb.open() for _ in fb]
+    t_rounds = time.perf_counter()
+    for off in range(0, max(len(f) for f in fb), 25):
+        for sid, f in zip(sids, fb):
+            if off < len(f):
+                sb.push(sid, f[off : off + 25])
+    hyps = [sb.finish(sid) for sid in sids]
+    torch.cuda.synchronize()
+    t_rounds = time.perf_counter() - t_rounds
+    stream_rel = 0.0
+    for sid, f in zip(sids, fb):
+        m, n, _ = encode(s16, torch.as_tensor(f[None], device=dev),
+                         torch.tensor([len(f)], device=dev))
+        got = torch.as_tensor(sb.state(sid).memory)
+        assert got.shape == (int(n[0]), s16.cfg.adim)
+        stream_rel = max(stream_rel, _scale_rel(got, m[0, : int(n[0])]))
+    assert stream_rel <= BF16_STREAM_REL, stream_rel
+    log(f"[bf16-stream] attn_chunk {s16.cfg.attn_chunk} left {s16.cfg.attn_left_chunks}, "
+        f"{BF16_STREAMS} streams in one bf16 StreamBatcher: {sb.rounds} rounds in "
+        f"{t_rounds:.2f} s; streamed vs offline bf16 chunked memory {stream_rel:.3e} of its "
+        f"scale (limit {BF16_STREAM_REL}); hypothesis lengths {[len(h) for h in hyps]}; "
+        f"phase 12 (a) took {time.perf_counter() - t_phase:.1f} s")
+    return launches, feats, nfr
+
+
+def lstm_lm_phase(e2e, idim, dev, tmp):
+    """Phase 9's LM stage with the lstm cell: train_lm.main --cell lstm at
+    wsj_fdlp_e2e's LM width on phase 9's transcripts; one step card against
+    CPU; a step's ms and tokens/s; phase 5's search fused with the trained
+    LSTM LM on the card and on the CPU, token for token."""
+    import dataclasses
+    import os
+
+    from speech_recognition_tools_tpu_torch.cli import train_lm
+    from speech_recognition_tools_tpu_torch.cli.recog_e2e import _load_lm
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import (
+        beam_search_encoded,
+        tokens_to_list,
+    )
+    from speech_recognition_tools_tpu_torch.io.text import load_vocab, read_text_file
+    from speech_recognition_tools_tpu_torch.models.rnnlm import RNNLM
+    from speech_recognition_tools_tpu_torch.models.transformer_asr import TransformerASR
+    from speech_recognition_tools_tpu_torch.train.checkpoint import load_checkpoint
+    from speech_recognition_tools_tpu_torch.train.optim import ClipAdam
+
+    t_phase = time.perf_counter()
+    L = LM_TRAIN
+    text, vocab_path, store = (os.path.join(tmp, d) for d in ("lm_text", "lm_vocab.json",
+                                                               "lm_lstm"))
+    argv = [text, store, "--vocab", vocab_path, "--device", str(dev), "--cell", "lstm"]
+    argv += [a for k, v in L.items() for a in (f"--{k}", str(v))]
+    t_main, nll = _synced(lambda: train_lm.main(argv))
+    assert len(nll) == L["epochs"] and all(np.isfinite(nll)), nll
+    assert load_checkpoint(os.path.join(store, "final"))[1]["cell"] == "lstm"
+    vocab = load_vocab(vocab_path)
+    V = len(vocab)
+    batches = list(train_lm.lm_batches(read_text_file(text), vocab, L["batch_size"],
+                                       L["bptt_len"], seed=0))
+
+    def fresh(device):
+        m = RNNLM(V, L["embed_dim"], L["hidden"], L["layers"], "lstm", device=device)
+        m.reset_parameters(torch.Generator().manual_seed(7))
+        opt = ClipAdam(L["learning_rate"], None, inject=False)
+        return m, opt, train_lm.make_train_step(m, opt)
+
+    def on(device, toks, lens):
+        return (torch.as_tensor(toks, device=device).long(),
+                torch.as_tensor(lens, device=device).long())
+
+    toks, lens = batches[0][0][:LM_STEP_CPU_SEQS], batches[0][1][:LM_STEP_CPU_SEQS]
+    toks = toks[:, : int(lens.max())]
+    first = {}
+    for device in ("cpu", dev):
+        m, opt, step = fresh(device)
+        _, loss = step(opt.init(dict(m.named_parameters())), *on(device, toks, lens))
+        first[str(device)] = loss.item()
+    l_c, l_g = first["cpu"], first[str(dev)]
+    assert _rel(l_g, l_c) <= 1e-5, (l_g, l_c)
+    m, opt, step = fresh(dev)
+    state = {"opt": opt.init(dict(m.named_parameters()))}
+    full = on(dev, *batches[0])
+
+    def one():
+        state["opt"], loss = step(state["opt"], *full)
+        return loss
+
+    one()
+    t_step, _ = wall_s(one)
+    n_tok = int((full[1] - 1).sum())
+
+    # phase 5's search fused with the trained LSTM LM, card against CPU
+    k = LSTM_SEARCH_UTTS
+    lm, cpu_lm = _load_lm(store, device=dev), _load_lm(store, device="cpu")
+    assert lm.cell == cpu_lm.cell == "lstm"
+    asr = e2e["asr"]
+    cpu_asr = TransformerASR(dataclasses.replace(asr.cfg), idim, device="cpu")
+    cpu_asr.load_state_dict(asr.state_dict())
+    mem, n, ctc = e2e["mem"][:k], e2e["enc_len"][:k], e2e["ctc"][:k]
+    with torch.no_grad():
+        tg, sg = beam_search_encoded(asr, mem, n, ctc, lm=lm, max_len=LM_SEARCH_MAX_LEN,
+                                     **E2E_BEAM)
+        tc, sc = beam_search_encoded(cpu_asr.eval(), mem.cpu(), n.cpu(), ctc.cpu(), lm=cpu_lm,
+                                     max_len=LM_SEARCH_MAX_LEN, **E2E_BEAM)
+    eos = asr.cfg.eos_id
+    same = sum(tokens_to_list(tg[b], sg[b], eos) == tokens_to_list(tc[b], sc[b], eos)
+               for b in range(k))
+    best_rel = ((sg.max(1).values.cpu() - sc.max(1).values).abs()
+                / sc.max(1).values.abs()).max().item()
+    assert same == k and best_rel <= 1e-4, (same, best_rel)
+    log(f"[lstm-lm] train_lm.main --cell lstm {L['layers']} x {L['hidden']}, embed "
+        f"{L['embed_dim']}, vocab {V}, {len(batches)} batches of {L['batch_size']} (bptt_len "
+        f"{L['bptt_len']}): {t_main:.2f} s, nll {nll[0]:.4f}; first step loss card "
+        f"{l_g:.6f} / cpu {l_c:.6f} (rel {_rel(l_g, l_c):.3e}, limit 1e-5); a step on "
+        f"B={len(batches[0][1])} x U={batches[0][0].shape[1]}: {t_step * 1e3:.1f} ms = "
+        f"{n_tok / t_step:.0f} tokens/s")
+    log(f"[lstm-lm] phase 5's search fused with it, beam 10, max_len {LM_SEARCH_MAX_LEN}, "
+        f"{k} utterances: card vs cpu token-identical {same} of {k}, best scores rel "
+        f"{best_rel:.3e} (limit 1e-4); phase 12 (b) took {time.perf_counter() - t_phase:.1f} s")
+
+
+class _EspMHA(torch.nn.Module):
+    """ESPnet's MultiHeadedAttention (linear_q/k/v/out), reconstructed."""
+
+    def __init__(self, heads, adim):
+        super().__init__()
+        self.h, self.dk = heads, adim // heads
+        for n in ("q", "k", "v", "out"):
+            setattr(self, f"linear_{n}", torch.nn.Linear(adim, adim))
+
+    def forward(self, q, k, v, mask=None):
+        B = q.shape[0]
+
+        def split(lin, t):
+            return lin(t).view(B, -1, self.h, self.dk).transpose(1, 2)
+
+        scores = split(self.linear_q, q) @ split(self.linear_k, k).transpose(-2, -1)
+        scores = scores / float(np.sqrt(self.dk))
+        if mask is not None:
+            scores = scores.masked_fill(~mask, float("-inf"))
+        out = torch.softmax(scores, -1) @ split(self.linear_v, v)
+        return self.linear_out(out.transpose(1, 2).reshape(B, -1, self.h * self.dk))
+
+
+class _EspFF(torch.nn.Module):
+    def __init__(self, adim, units):
+        super().__init__()
+        self.w_1, self.w_2 = torch.nn.Linear(adim, units), torch.nn.Linear(units, adim)
+
+    def forward(self, x):
+        return self.w_2(torch.relu(self.w_1(x)))
+
+
+class _EspLayer(torch.nn.Module):
+    """A pre-norm ESPnet encoder layer (self-attention, FFN) or decoder
+    layer (self-attention, source attention, FFN); LayerNorm eps 1e-12."""
+
+    def __init__(self, heads, adim, units, cross):
+        super().__init__()
+        self.self_attn = _EspMHA(heads, adim)
+        if cross:
+            self.src_attn = _EspMHA(heads, adim)
+        self.feed_forward = _EspFF(adim, units)
+        for i in range(3 if cross else 2):
+            setattr(self, f"norm{i + 1}", torch.nn.LayerNorm(adim, eps=1e-12))
+        self.cross = cross
+
+    def forward(self, x, mem=None, mask=None):
+        h = self.norm1(x)
+        x = x + self.self_attn(h, h, h, mask)
+        if self.cross:
+            h = self.norm2(x)
+            x = x + self.src_attn(h, mem, mem)
+        return x + self.feed_forward((self.norm3 if self.cross else self.norm2)(x))
+
+
+class _EspnetE2E(torch.nn.Module):
+    """A reconstruction of ESPnet's e2e_asr_transformer E2E (conv2d input
+    layer, pre-norm blocks, sinusoidal positions scaled by sqrt(adim), CTC
+    and attention heads) with ESPnet's state_dict key names."""
+
+    def __init__(self, idim, odim, adim, heads, eunits, dunits, elayers, dlayers):
+        super().__init__()
+        nn = torch.nn
+        self.adim = adim
+        self.encoder, self.decoder, self.ctc = nn.Module(), nn.Module(), nn.Module()
+        e, d = self.encoder, self.decoder
+        e.embed = nn.Module()
+        e.embed.conv = nn.Sequential(nn.Conv2d(1, adim, 3, 2), nn.ReLU(),
+                                     nn.Conv2d(adim, adim, 3, 2), nn.ReLU())
+        e.embed.out = nn.Sequential(nn.Linear(adim * (((idim - 1) // 2 - 1) // 2), adim))
+        e.encoders = nn.ModuleList(_EspLayer(heads, adim, eunits, False)
+                                   for _ in range(elayers))
+        e.after_norm = nn.LayerNorm(adim, eps=1e-12)
+        d.embed = nn.Sequential(nn.Embedding(odim, adim))
+        d.decoders = nn.ModuleList(_EspLayer(heads, adim, dunits, True) for _ in range(dlayers))
+        d.after_norm = nn.LayerNorm(adim, eps=1e-12)
+        d.output_layer = nn.Linear(adim, odim)
+        self.ctc.ctc_lo = nn.Linear(adim, odim)
+
+    def _pe(self, n, device):
+        from speech_recognition_tools_tpu_torch.models.transformer_asr import posenc_host
+
+        return torch.as_tensor(posenc_host(n, self.adim), device=device)[None]
+
+    def encode(self, x):
+        e = self.encoder
+        h = e.embed.conv(x[:, None])
+        b, c, t, f = h.shape
+        h = e.embed.out(h.transpose(1, 2).reshape(b, t, c * f))
+        h = h * float(np.sqrt(self.adim)) + self._pe(t, x.device)
+        for layer in e.encoders:
+            h = layer(h)
+        return e.after_norm(h)
+
+    def decode(self, tokens, mem):
+        d = self.decoder
+        U = tokens.shape[1]
+        h = d.embed(tokens) * float(np.sqrt(self.adim)) + self._pe(U, tokens.device)
+        causal = torch.ones(U, U, dtype=torch.bool, device=tokens.device).tril()[None, None]
+        for layer in d.decoders:
+            h = layer(h, mem, causal)
+        return d.output_layer(d.after_norm(h))
+
+
+class _EspnetLM(torch.nn.Module):
+    """ESPnet's DefaultRNNLM under ClassifierWithState ('predictor.'): embed
+    -> LSTMCells -> Linear lo, reconstructed."""
+
+    def __init__(self, vocab, embed, units, layers):
+        super().__init__()
+        p = self.predictor = torch.nn.Module()
+        p.embed = torch.nn.Embedding(vocab, embed)
+        p.rnn = torch.nn.ModuleList(torch.nn.LSTMCell(embed if i == 0 else units, units)
+                                    for i in range(layers))
+        p.lo = torch.nn.Linear(units, vocab)
+
+    def forward(self, tokens):
+        p = self.predictor
+        B, U = tokens.shape
+        hc = [(tokens.new_zeros((B, c.hidden_size), dtype=torch.float32),) * 2 for c in p.rnn]
+        emb, outs = p.embed(tokens), []
+        for t in range(U):
+            h = emb[:, t]
+            for i, cell in enumerate(p.rnn):
+                hc[i] = cell(h, hc[i])
+                h = hc[i][0]
+            outs.append(p.lo(h))
+        return torch.stack(outs, 1)
+
+
+class _NnetRNN(torch.nn.Module):
+    """The reference's nnetRNN (nnet_models.py:54), reconstructed: one
+    nn.GRU per layer over packed sequences, then a 1x1 Conv1d regression."""
+
+    def __init__(self, idim, layers, hidden, classes):
+        super().__init__()
+        self.layers = torch.nn.ModuleList(
+            torch.nn.GRU(idim if i == 0 else hidden, hidden, batch_first=True)
+            for i in range(layers))
+        self.regression = torch.nn.Conv1d(hidden, classes, 1)
+
+    def forward(self, x, lengths):
+        from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+        for gru in self.layers:
+            packed = pack_padded_sequence(x, lengths.cpu(), batch_first=True,
+                                          enforce_sorted=False)
+            x, _ = pad_packed_sequence(gru(packed)[0], batch_first=True,
+                                       total_length=x.shape[1])
+        return self.regression(x.transpose(1, 2)).transpose(1, 2)
+
+
+def import_phase(feats, nfr, hyb_idim, dev, tmp, seed):
+    """Reference checkpoints built here in their toolkits' layouts and
+    torch.save'd: an ESPnet e2e transformer at wsj_fdlp_e2e's widths with
+    its units file, an ESPnet DefaultRNNLM (1 x 1000 LSTM), a reference
+    nnetRNN .model dict at timit_hybrid's widths. import_torch_ckpt.main
+    imports each; recog_e2e.main decodes phase 7's egs (phase 3's K1
+    features) with the imported model and LM fused; dump_outputs.main runs
+    the imported hybrid model over phase 6's egs. Each imported model is
+    held to its torch reconstruction's forward on the card."""
+    import os
+    import string
+
+    from speech_recognition_tools_tpu_torch.cli import dump_outputs, import_torch_ckpt, recog_e2e
+    from speech_recognition_tools_tpu_torch.io.egs import iter_egs_batches
+    from speech_recognition_tools_tpu_torch.io.kaldi_ark import read_ark
+
+    t_phase = time.perf_counter()
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    A, V, idim = E2E_AM, E2E_AM["vocab_size"], feats.shape[-1]
+    torch.manual_seed(seed)
+    esp = _EspnetE2E(idim, V, A["adim"], A["aheads"], A["eunits"], A["dunits"], A["elayers"],
+                     A["dlayers"]).eval()
+    esp_lm = _EspnetLM(V, LM_TRAIN["embed_dim"], LM_TRAIN["hidden"], 1).eval()
+    hyb = _NnetRNN(hyb_idim, HYBRID_TRAIN["num_layers"], HYBRID_TRAIN["hidden_dim"],
+                   HYBRID_CLASSES).eval()
+    units = ["<unk>", "<space>"] + list(string.ascii_letters[: V - 4])
+    with open(j("esp_units.txt"), "w") as fh:  # ids 1..V-2; 0 = blank, V-1 = sos/eos
+        fh.writelines(f"{u} {i + 1}\n" for i, u in enumerate(units))
+    torch.save(esp.state_dict(), j("model.acc.best"))
+    torch.save(esp_lm.state_dict(), j("rnnlm.model.best"))
+    torch.save({"model_state_dict": hyb.state_dict(), "dropout": 0.0, "epoch": 1},
+               j("hybrid.model"))
+    t_imp, _ = _synced(lambda: (
+        import_torch_ckpt.main([j("model.acc.best"), j("esp_am"), "--espnet_units",
+                                j("esp_units.txt"), "--aheads", str(A["aheads"])]),
+        import_torch_ckpt.main([j("rnnlm.model.best"), j("esp_lm")]),
+        import_torch_ckpt.main([j("hybrid.model"), j("imp_hyb")])))
+
+    # recog_e2e over phase 7's egs with the imported model and LM
+    t_rec, hyps = _synced(lambda: recog_e2e.main([
+        j("esp_am"), j("e2e_egs"), j("esp_hyp.txt"), "--lm_dir", j("esp_lm"), "--jit_decode",
+        "--batch_size", "32", "--max_len", str(IMPORT_RECOG_MAX_LEN), "--device", str(dev)]))
+    assert len(hyps) == 2 * len(nfr) and all(isinstance(h, str) for h in hyps.values())
+
+    # each imported model against its torch reconstruction on the card
+    model, cfg, _ = recog_e2e._load(j("esp_am"), "final_avg", device=dev)
+    lm = recog_e2e._load_lm(j("esp_lm"), device=dev)
+    assert (cfg.elayers, cfg.dlayers, cfg.adim, lm.cell) == (A["elayers"], A["dlayers"],
+                                                              A["adim"], "lstm")
+    esp, esp_lm, hyb = esp.to(dev), esp_lm.to(dev), hyb.to(dev)
+    gen = torch.Generator().manual_seed(seed)
+    e2e_err = 0.0
+    for b in range(IMPORT_UTTS):
+        f = feats[b : b + 1, : int(nfr[b])]
+        tokens = torch.randint(0, V, (1, 20), generator=gen).to(dev)
+        with torch.no_grad():
+            mem_t = esp.encode(f)
+            want = (mem_t, esp.ctc.ctc_lo(mem_t), esp.decode(tokens, mem_t))
+            mem, n, ctc = model.encode(f, nfr[b : b + 1])
+            got = (mem, ctc, model.decode_step(tokens, mem, n))
+        assert int(n[0]) == mem_t.shape[1]
+        e2e_err = max(e2e_err, *((g - w).abs().max().item() for g, w in zip(got, want)))
+    assert e2e_err <= IMPORT_E2E_ATOL, e2e_err
+    tokens = torch.randint(0, V, (4, 30), generator=gen).to(dev)
+    with torch.no_grad():
+        lm_err = (lm(tokens) - esp_lm(tokens)).abs().max().item()
+    assert lm_err <= IMPORT_LM_ATOL, lm_err
+
+    # dump_outputs of the imported hybrid model against the reconstruction
+    t_dump, _ = _synced(lambda: dump_outputs.main([j("imp_hyb"), j("hyb_egs"), j("imp_ll"),
+                                                   "--device", str(dev)]))
+    dumped = dict(read_ark(j("imp_ll.ark")))
+    b0 = next(iter_egs_batches(j("hyb_egs"), 4))
+    with torch.no_grad():
+        ref = hyb(torch.as_tensor(b0["feats"], device=dev),
+                  torch.as_tensor(b0["lengths"], device=dev)).cpu().numpy()
+    hyb_err = max(float(np.abs(dumped[key] - ref[i, : int(b0["lengths"][i])]).max())
+                  for i, key in enumerate(b0["keys"]))
+    assert hyb_err <= IMPORT_HYB_ATOL, hyb_err
+    log(f"[import] ESPnet e2e ({A['elayers']}/{A['dlayers']} layers, adim {A['adim']}), "
+        f"DefaultRNNLM 1 x {LM_TRAIN['hidden']} LSTM, nnetRNN {HYBRID_TRAIN['num_layers']} x "
+        f"{HYBRID_TRAIN['hidden_dim']} -> {HYBRID_CLASSES}: imported in {t_imp:.2f} s; "
+        f"recog_e2e --lm_dir (imported LSTM) --jit_decode over {len(hyps)} utterances, "
+        f"max_len {IMPORT_RECOG_MAX_LEN}: {t_rec:.2f} s; dump_outputs over phase 6's egs: "
+        f"{t_dump:.2f} s")
+    log(f"[import] imported vs torch reconstruction on the card: e2e encoder/CTC/decoder "
+        f"max|err| {e2e_err:.3e} (atol {IMPORT_E2E_ATOL}), LM logits {lm_err:.3e} (atol "
+        f"{IMPORT_LM_ATOL}), hybrid logits {hyb_err:.3e} (atol {IMPORT_HYB_ATOL}); phase 12 "
+        f"(c) took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2565,8 +3201,15 @@ def main():
         modspec_launches = modspec_phase(x, lens, dev, tmp)
         incremental_phase(e2e_model, dev)
         log(f"[phase11] {time.perf_counter() - t11:.2f} s")
+        # ---- 12. bf16 compute, the LSTM RNNLM, the checkpoint importer ----
+        t12 = time.perf_counter()
+        bf16_launches, feats_n, nfr_n = bf16_phase(e2e_model, x, lens, e2e, fa, na, rng, dev,
+                                                   tmp)
+        lstm_lm_phase(e2e_model, e2e.nfilters, dev, tmp)
+        import_phase(feats_n, nfr_n, hyb.nfilters, dev, tmp, args.seed)
+        log(f"[phase12] {time.perf_counter() - t12:.2f} s")
 
-    # ---- 12. every kernel of the port ----
+    # ---- 13. every kernel of the port ----
     log(json.dumps({"kernels": [{
         "name": "lpc_cepstra",
         "route": "cuda",
@@ -2580,7 +3223,7 @@ def main():
                              "hybrid_decode": decode_launches,
                              "conformer_e2e": conf_launches,
                              "conformer_stream": conf_stream_launches,
-                             "modspec": modspec_launches},
+                             "modspec": modspec_launches, "bf16_e2e": bf16_launches},
         "max_abs_err": main_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -2595,7 +3238,7 @@ def main():
     # names the card and its power limit beside the numbers above
     log(smi)
 
-    # ---- 13. contract line ----
+    # ---- 14. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

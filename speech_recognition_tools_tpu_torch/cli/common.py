@@ -17,9 +17,9 @@ from speech_recognition_tools_tpu_torch.io.scp import read_scp, read_segments
 from speech_recognition_tools_tpu_torch.io.wav import read_wav_scp_entry
 
 
-AUGMENT_ITEM = ("ROADMAP Queue 1 item 6: enhancement, augmentation, evaluation and "
+AUGMENT_ITEM = ("ROADMAP Queue 1 item 4: enhancement, augmentation, evaluation and "
                 "alignment (dsp/augment.py, dsp/simulate.py)")
-PARALLEL_ITEM = "ROADMAP Queue 1 item 7: the parallel paths"
+PARALLEL_ITEM = "ROADMAP Queue 1 item 5: the parallel paths"
 
 
 def check_unported(args):

@@ -21,7 +21,7 @@ embedding taps, so `--layer > 0` raises IndexError, as in the JAX CLI.
 import argparse
 import pickle
 
-_UNPORTED = "(ROADMAP Queue 1 item 3: the rest of the model zoo and its training CLIs)"
+_UNPORTED = "(ROADMAP Queue 1 item 1: the rest of the model zoo and its training CLIs)"
 
 
 def get_parser():

@@ -16,9 +16,11 @@ given.
 The host search and `--jit_decode` are one search here (the batched loop
 at batch 1 or `--batch_size`). Checkpoints are the JAX package's layout,
 read with train/checkpoint.py; the model's config.json gives its encoder
-(transformer, or conformer with its conv_kernel). `--api cl`, `--word_lm_dir`,
-`--ring_attention > 1` and `--compute_dtype bfloat16` raise
-NotImplementedError.
+(transformer, or conformer with its conv_kernel), and the LM's its cell
+(gru or lstm). `--compute_dtype bfloat16` decodes in mixed precision
+(float32 weights and logit heads, bfloat16 everywhere else; offline,
+`--streaming` and the KV-cached search alike). `--api cl`, `--word_lm_dir`
+and `--ring_attention > 1` raise NotImplementedError.
 """
 
 import argparse
@@ -68,7 +70,9 @@ def get_parser():
                    help="N > 0: every N pushes, print an attention-rescored "
                         "partial (beam over the memory streamed so far)")
     p.add_argument("--compute_dtype", default="float32",
-                   choices=["float32", "bfloat16"], help="only 'float32' is ported")
+                   choices=["float32", "bfloat16"],
+                   help="inference compute dtype: bfloat16 keeps the float32 weights "
+                        "and the float32 logit heads and computes the rest in bf16")
     p.add_argument("--ring_attention", type=int, default=0, metavar="S",
                    help="not yet ported")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
@@ -134,9 +138,6 @@ def main(argv=None):
         raise NotImplementedError("--word_lm_dir (look-ahead word LM) is not yet ported")
     if args.ring_attention > 1:
         raise NotImplementedError("--ring_attention is not yet ported")
-    if args.compute_dtype != "float32":
-        raise NotImplementedError(f"--compute_dtype {args.compute_dtype} is not yet ported "
-                                  "(ROADMAP Queue 1 item 1: bf16 compute)")
 
     import torch
 

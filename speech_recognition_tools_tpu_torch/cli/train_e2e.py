@@ -16,9 +16,11 @@ is given.
 
 `--encoder_type conformer --conv_kernel K` trains the conformer encoder
 (recipes/configs/wsj_fdlp_conformer_e2e.json); `config.json` records both.
-`--data_parallel`, `--tensor_parallel`, `--pipeline_parallel` and
-`--compute_dtype bfloat16` raise NotImplementedError naming their ROADMAP
-item.
+`--compute_dtype bfloat16` trains in mixed precision: the parameters, the
+gradients, the Adam state and the checkpoints stay float32, the logit
+heads and the loss compute in float32, the rest in bfloat16.
+`--data_parallel`, `--tensor_parallel` and `--pipeline_parallel` raise
+NotImplementedError naming their ROADMAP item.
 """
 
 import argparse
@@ -52,7 +54,9 @@ def get_parser():
     p.add_argument("--conv_kernel", type=int, default=15,
                    help="conformer depthwise conv width")
     p.add_argument("--compute_dtype", default="float32",
-                   choices=["float32", "bfloat16"], help="only 'float32' is ported")
+                   choices=["float32", "bfloat16"],
+                   help="mixed-precision training: bf16 compute, float32 master "
+                        "weights, optimizer state, logit heads and loss")
     p.add_argument("--epochs", type=int, default=50)
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--warmup_steps", type=int, default=25000)
@@ -182,13 +186,13 @@ def resolve_init_checkpoint(path):
 def main(argv=None):
     args = get_parser().parse_args(argv)
     if args.data_parallel:
-        raise NotImplementedError("--data_parallel is not yet ported (ROADMAP Queue 1 item 7: "
+        raise NotImplementedError("--data_parallel is not yet ported (ROADMAP Queue 1 item 5: "
                                   "the parallel paths)")
     if args.tensor_parallel > 1:
-        raise NotImplementedError("--tensor_parallel is not yet ported (ROADMAP Queue 1 item 7: "
+        raise NotImplementedError("--tensor_parallel is not yet ported (ROADMAP Queue 1 item 5: "
                                   "the parallel paths)")
     if args.pipeline_parallel > 1:
-        raise NotImplementedError("--pipeline_parallel is not yet ported (ROADMAP Queue 1 item 7: "
+        raise NotImplementedError("--pipeline_parallel is not yet ported (ROADMAP Queue 1 item 5: "
                                   "the parallel paths)")
 
     import torch

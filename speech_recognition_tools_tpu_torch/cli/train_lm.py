@@ -1,4 +1,4 @@
-"""RNNLM training CLI, character units with the GRU cell.
+"""RNNLM training CLI, character units with the GRU or LSTM cell.
 
 Port of speech_recognition_tools_tpu/cli/train_lm.py with its flags and
 outputs: a Kaldi text file in, `vocab.json`, one `epoch_N` checkpoint per
@@ -16,14 +16,15 @@ The optimizer is plain optax.adam(lr) written out by train/optim.py
 its state is written in that layout (io/jax_params.py, `inject=False`). The initial weights come
 from a torch.Generator seeded with `--seed` (flax's distributions, not
 jax.random's bits); the batches are shuffled by numpy as in the JAX CLI.
-`--unit word` and `--cell lstm` raise NotImplementedError.
+`--cell lstm` trains the JAX package's LSTM RNNLM (flax OptimizedLSTMCell
+layers, ESPnet's default LM cell). `--unit word` raises
+NotImplementedError.
 """
 
 import argparse
 import os
 
-_LSTM = "--cell lstm is not yet ported (ROADMAP Queue 1 item 2: the lstm RNNLM cell)"
-_WORD = ("--unit word is not yet ported (ROADMAP Queue 1 item 5: word-level LMs and the "
+_WORD = ("--unit word is not yet ported (ROADMAP Queue 1 item 3: word-level LMs and the "
          "look-ahead word LM)")
 
 
@@ -42,7 +43,7 @@ def get_parser():
     p.add_argument("--hidden", type=int, default=1000)
     p.add_argument("--layers", type=int, default=1)
     p.add_argument("--cell", default="gru", choices=["gru", "lstm"],
-                   help="recurrent cell; only 'gru' is ported")
+                   help="recurrent cell (lstm matches ESPnet's default LM cell)")
     p.add_argument("--epochs", type=int, default=20)
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--learning_rate", type=float, default=1e-3)
@@ -108,8 +109,6 @@ def main(argv=None):
     args = get_parser().parse_args(argv)
     if args.unit != "char":
         raise NotImplementedError(_WORD)
-    if args.cell != "gru":
-        raise NotImplementedError(_LSTM)
 
     import numpy as np
     import torch

@@ -20,8 +20,9 @@ Where the port differs in form, not in result:
     JAX buffer holds those eos;
   - the decoder runs on tokens[:, :step + 1]; its causal and -1 masks make
     that the JAX search's fixed-width pass at position `step`;
-  - the RNNLM carries each beam's GRU state and reorders it with the
-    beams, instead of rerunning the GRU over the whole buffer;
+  - the RNNLM carries each beam's state (a GRU's, or an LSTM's h and c)
+    and reorders it with the beams, instead of rerunning the stack over
+    the whole buffer;
   - the top K of each utterance come from a stable descending sort, so
     exact ties go to the lower flat index and NaN ranks below every score,
     as in jax.lax.top_k;
@@ -106,7 +107,8 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
     dev = memory.device
     tick = _PartTimer(timings, dev)
     ctc_logp = torch.log_softmax(ctc_logits, dim=-1)
-    mem = memory.repeat_interleave(K, dim=0)
+    # memory in the compute dtype once, not at every step's projections
+    mem = memory.to(cfg.cdtype or memory.dtype).repeat_interleave(K, dim=0)
     mem_len = enc_len.repeat_interleave(K)
     utt = torch.arange(B, device=dev)[:, None]  # (B, 1)
 
@@ -169,7 +171,7 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
         att_cum = new_att.view(B, K * V).gather(1, top_idx)
         if lm is not None:
             lm_cum = new_lm.view(B, K * V).gather(1, top_idx)
-            lm_state = lm_next[:, rows]
+            lm_state = lm.reorder_state(lm_next, rows)
         scores = top_scores
         finished = ends
         last_tokens = torch.where(ends, last_tokens.gather(1, beam_idx), tok)

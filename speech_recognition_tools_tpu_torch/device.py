@@ -23,13 +23,19 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def configure_cuda() -> None:
-    """Switch TF32 off, process-wide, for CUDA matmuls and cuDNN.
+    """Switch TF32 off, process-wide, for CUDA matmuls and cuDNN, and make
+    bfloat16 matmuls reduce in float32.
 
-    The JAX package runs every contraction at Precision.HIGHEST (full
-    float32), and the port is held to it. The entry points that run on a
-    card (`fdlp_lags` / `fdlp_spectrogram_batch`, which the featgen CLI
-    runs, and `RNNClassifier`) call this when their device is CUDA, and say
-    so; it is the one place the port changes these `torch.backends` flags.
+    The JAX package runs every float32 contraction at Precision.HIGHEST
+    (full float32), and the port is held to it. Its bfloat16 products
+    (compute_dtype "bfloat16") accumulate in float32, as XLA's do, where
+    torch's default lets cuBLAS reduce them in bfloat16
+    (`allow_bf16_reduced_precision_reduction`, switched off here). The
+    entry points that run on a card (`fdlp_lags` / `fdlp_spectrogram_batch`,
+    which the featgen CLI runs, `RNNClassifier`, `TransformerASR` and
+    `RNNLM`) call this when their device is CUDA, and say so; it is the one
+    place the port changes these `torch.backends` flags.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

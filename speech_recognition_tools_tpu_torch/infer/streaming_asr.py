@@ -44,7 +44,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-from speech_recognition_tools_tpu_torch.models.transformer_asr import posenc_host
+from speech_recognition_tools_tpu_torch.models.transformer_asr import posenc_host, scalar_as
 
 
 def _total_subsampled(n_frames: int) -> int:
@@ -170,7 +170,10 @@ def make_stream_step(model):
     conformer = enc.conformer
     tail = c.conv_kernel - 1
     dev = _model_device(model)
+    cdt = c.cdtype or torch.float32
     scale = float(np.sqrt(c.adim))
+    if c.cdtype is not None:
+        scale = scalar_as(scale, c.cdtype)
     cached = torch.arange(L, device=dev)[None, :]
     new = torch.arange(chunk, device=dev)[None, :]
 
@@ -178,7 +181,9 @@ def make_stream_step(model):
     def step(x_slice, pe_rows, n_valid, update, caches):
         B, T, _ = x_slice.shape
         h, _ = enc.embed(x_slice, torch.full((B,), T, device=dev))
-        h = h * scale + pe_rows  # (B, chunk, adim): the offline frames
+        # the host's float32 positional rows cast to the compute dtype, as
+        # the offline _embed_scale casts its table: the offline frames
+        h = h * scale + pe_rows.to(h.dtype)  # (B, chunk, adim)
         valid_new = new < n_valid[:, None]
         up_row = update[:, None, None]
         new_caches = {}
@@ -203,15 +208,16 @@ def make_stream_step(model):
             new_caches[f"layer_{i}"] = nc
             h = out
         h = enc.after_norm(h)
-        return h, model.ctc_head(h), new_caches
+        return h, model.ctc_head(h.to(model.ctc_head.weight.dtype)), new_caches
 
     def init_caches(batch: int = 1):
+        # the caches hold block activations, so they are in the compute dtype
         caches = {}
         for i in range(c.elayers):
-            entry = {"kv": torch.zeros((batch, L, c.adim), device=dev),
+            entry = {"kv": torch.zeros((batch, L, c.adim), dtype=cdt, device=dev),
                      "kv_valid": torch.zeros((batch,), dtype=torch.int32, device=dev)}
             if conformer:
-                entry["conv"] = torch.zeros((batch, tail, c.adim), device=dev)
+                entry["conv"] = torch.zeros((batch, tail, c.adim), dtype=cdt, device=dev)
             caches[f"layer_{i}"] = entry
         return caches
 
@@ -416,7 +422,9 @@ class StreamBatcher:
             torch.as_tensor(nv).to(dev), torch.as_tensor(up).to(dev), self.caches)
         self.rounds += 1
         ctc = ctc.cpu().numpy()
-        h = h.cpu().numpy() if self.store_memory else None
+        if self.store_memory:
+            # bfloat16 rows widen exactly to float32 (numpy has no bfloat16)
+            h = (h.float() if h.dtype == torch.bfloat16 else h).cpu().numpy()
         for sid, r, n_valid in rows:
             st = self._streams[sid]
             row_ctc = ctc[r, :n_valid]
@@ -737,7 +745,7 @@ class OnlineASRPipeline:
         serving.json (FdlpConfig() defaults and no CMVN without one)."""
         if int8:
             raise NotImplementedError("int8 encoder weights (infer/quantize.py) are not yet ported "
-                                      "(ROADMAP Queue 1 item 5: int8 serving)")
+                                      "(ROADMAP Queue 1 item 3: int8 serving)")
         from speech_recognition_tools_tpu_torch.cli.recog_e2e import _load
 
         model, _cfg, vocab = _load(model_dir, ckpt, device=device)

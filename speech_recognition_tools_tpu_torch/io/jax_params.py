@@ -12,8 +12,12 @@ the three input biases stacked r|z|n, and no bias is folded or split off.
 
 `transformer_asr_from_jax` and `rnnlm_from_jax` do the same for
 models/transformer_asr.py::TransformerASR (either encoder type: a tree
-whose encoder layers hold `mhsa` is a conformer's) and models/rnnlm.py::RNNLM, and
-raise if any leaf of the flax tree is left unused.
+whose encoder layers hold `mhsa` is a conformer's) and models/rnnlm.py::RNNLM
+(either cell: a GRU stack is rnn/gru_{i}/cell, LSTM layers are
+rnn_{i}/cell with flax OptimizedLSTMCell's bias-free input kernels
+ii/if/ig/io and biased recurrent hi/hf/hg/ho, the layout
+io/torch_import.py::lstm_cell_from_torch writes), and raise if any leaf of
+the flax tree is left unused.
 
 `rnn_classifier_to_jax`, `transformer_asr_to_jax` and `rnnlm_to_jax` are
 the exact inverses (a state_dict, or any dict of tensors keyed like one,
@@ -268,16 +272,56 @@ _GRU_CELL_LEAVES = {(f"i{g}", leaf) for g in "rzn" for leaf in ("kernel", "bias"
     ("hr", "kernel"), ("hz", "kernel"), ("hn", "kernel"), ("hn", "bias")}
 
 
+_LSTM_GATES = ("i", "f", "g", "o")
+_LSTM_CELL_LEAVES = {(f"i{g}", "kernel") for g in _LSTM_GATES} | {
+    (f"h{g}", leaf) for g in _LSTM_GATES for leaf in ("kernel", "bias")}
+
+
+def lstm_cell_from_jax(cell: dict) -> dict:
+    """flax OptimizedLSTMCell params -> MaskedLSTMLayer state_dict entries."""
+    return {
+        "weight_ih": _t(np.concatenate([np.asarray(cell[f"i{g}"]["kernel"]).T
+                                        for g in _LSTM_GATES])),
+        "weight_hh": _t(np.concatenate([np.asarray(cell[f"h{g}"]["kernel"]).T
+                                        for g in _LSTM_GATES])),
+        "bias_hh": _t(np.concatenate([np.asarray(cell[f"h{g}"]["bias"])
+                                      for g in _LSTM_GATES])),
+    }
+
+
+def lstm_cell_to_jax(sd: dict, prefix: str) -> dict:
+    """MaskedLSTMLayer entries `<prefix>.{weight_ih,...}` -> flax
+    OptimizedLSTMCell params."""
+    w_ih = np.split(_np(sd[f"{prefix}.weight_ih"]), 4)
+    w_hh = np.split(_np(sd[f"{prefix}.weight_hh"]), 4)
+    b_hh = np.split(_np(sd[f"{prefix}.bias_hh"]), 4)
+    cell = {}
+    for i, g in enumerate(_LSTM_GATES):
+        cell[f"i{g}"] = {"kernel": w_ih[i].T.copy()}
+        cell[f"h{g}"] = {"kernel": w_hh[i].T.copy(), "bias": b_hh[i].copy()}
+    return cell
+
+
+def _cell_subtree(leaves, path, want, what):
+    cell = {}
+    for (gate, leaf), val in leaves.subtree(*path).items():
+        cell.setdefault(gate, {})[leaf] = val
+    if {(g, leaf) for g in cell for leaf in cell[g]} != want:
+        raise ValueError(f"unexpected {what} cell layout in {'/'.join(path)}: {cell.keys()}")
+    return cell
+
+
 def rnnlm_from_jax(params: dict) -> dict:
-    """flax RNNLM params (GRU cell) -> the port's RNNLM state_dict."""
+    """flax RNNLM params (GRU or LSTM cell) -> the port's RNNLM state_dict."""
     leaves = _Leaves(params)
     sd = {"embed.weight": _t(leaves.take("embed", "embedding"))}
+    lstm = sorted({k[0] for k in leaves.left if k[0].startswith("rnn_")})
+    for i in range(len(lstm)):
+        cell = _cell_subtree(leaves, (f"rnn_{i}", "cell"), _LSTM_CELL_LEAVES, "LSTM")
+        for name, val in lstm_cell_from_jax(cell).items():
+            sd[f"rnn.layers.{i}.{name}"] = val
     for i in range(len({k[1] for k in leaves.left if k[0] == "rnn"})):
-        cell = {}
-        for (gate, leaf), val in leaves.subtree("rnn", f"gru_{i}", "cell").items():
-            cell.setdefault(gate, {})[leaf] = val
-        if {(g, leaf) for g in cell for leaf in cell[g]} != _GRU_CELL_LEAVES:
-            raise ValueError(f"unexpected GRU cell layout in rnn/gru_{i}: {cell.keys()}")
+        cell = _cell_subtree(leaves, ("rnn", f"gru_{i}", "cell"), _GRU_CELL_LEAVES, "GRU")
         for name, val in gru_cell_from_jax(cell).items():
             sd[f"rnn.layers.{i}.{name}"] = val
     _dense(leaves, ("output",), sd, "output")
@@ -287,11 +331,17 @@ def rnnlm_from_jax(params: dict) -> dict:
 
 def rnnlm_to_jax(sd: dict) -> dict:
     """The port's RNNLM state_dict (or a dict keyed like it) -> the flax
-    tree {"params": {"embed", "rnn", "output"}} of numpy arrays."""
+    tree {"params": {"embed", "rnn" (GRU) or "rnn_{i}" (LSTM), "output"}}
+    of numpy arrays."""
     n = len({k.split(".")[2] for k in sd if k.startswith("rnn.layers.")})
+    if "rnn.layers.0.bias_hh" in sd:  # an LSTM
+        rnn = {f"rnn_{i}": {"cell": lstm_cell_to_jax(sd, f"rnn.layers.{i}")} for i in range(n)}
+    else:
+        rnn = {"rnn": {f"gru_{i}": {"cell": gru_cell_to_jax(sd, f"rnn.layers.{i}")}
+                       for i in range(n)}}
     return {"params": {
         "embed": {"embedding": _np(sd["embed.weight"]).copy()},
-        "rnn": {f"gru_{i}": {"cell": gru_cell_to_jax(sd, f"rnn.layers.{i}")} for i in range(n)},
+        **rnn,
         "output": {"kernel": _np(sd["output.weight"]).T.copy(),
                    "bias": _np(sd["output.bias"]).copy()},
     }}

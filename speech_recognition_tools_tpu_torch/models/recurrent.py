@@ -2,7 +2,8 @@
 
 Port of speech_recognition_tools_tpu/models/recurrent.py::length_mask,
 MaskedGRULayer, GRUStack and RNNClassifier (reference nnetRNN,
-nnet_models.py:54). Each layer runs over the padded batch with its carry
+nnet_models.py:54), and of models/cnn.py::MaskedLSTMLayer (the LSTM RNNLM's
+layer; flax's OptimizedLSTMCell). Each layer runs over the padded batch with its carry
 frozen past each utterance's length and its padded outputs zeroed, which
 matches packed-sequence semantics on valid frames.
 
@@ -94,6 +95,85 @@ class MaskedGRULayer(nn.Module):
             h = torch.where(keep, h_new, h)
             outs.append(torch.where(keep, h_new, torch.zeros_like(h_new)))
         return torch.stack(outs, dim=1)
+
+
+class MaskedLSTMLayer(nn.Module):
+    """One LSTM layer over (B, T, D) with the carry (h, c) frozen past
+    `lengths` and padded outputs zeroed. The gate algebra is flax's
+    OptimizedLSTMCell:
+
+        i = sigmoid(W_ii x + W_hi h + b_hi)    f, o likewise
+        g = tanh(W_ig x + W_hg h + b_hg)
+        c' = f * c + i * g,    h' = o * tanh(c')
+
+    The input kernels carry no bias and the recurrent ones do, as in flax.
+    Weights are stored gate-stacked (i|f|g|o): weight_ih (4H, D),
+    weight_hh (4H, H) and bias_hh (4H,)."""
+
+    def __init__(self, input_size: int, hidden_size: int, *, device=None):
+        super().__init__()
+        H = hidden_size
+        self.hidden_size = H
+        self.weight_ih = nn.Parameter(torch.empty(4 * H, input_size, device=device))
+        self.weight_hh = nn.Parameter(torch.empty(4 * H, H, device=device))
+        self.bias_hh = nn.Parameter(torch.empty(4 * H, device=device))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """flax OptimizedLSTMCell's defaults: lecun_normal input kernels,
+        orthogonal recurrent kernels (one draw per gate), zero biases."""
+        H = self.hidden_size
+        for g in range(4):
+            flax_init.lecun_normal_(self.weight_ih[g * H:(g + 1) * H],
+                                    self.weight_ih.shape[1], generator)
+            flax_init.orthogonal_(self.weight_hh[g * H:(g + 1) * H], generator)
+        flax_init.zeros_(self.bias_hh)
+
+    def cell(self, xi: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+        """One step: the input projection xi = W_i x (N, 4H) and the carry
+        (h, c) -> the new (h, c)."""
+        i, f, g, o = (h @ self.weight_hh.T + self.bias_hh + xi).split(self.hidden_size, -1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c), c
+
+    def forward(self, inputs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        B, T, _ = inputs.shape
+        mask = length_mask(lengths, T)
+        xi = inputs @ self.weight_ih.T
+        h = c = inputs.new_zeros((B, self.hidden_size))
+        outs = []
+        for xi_t, keep in zip(xi.unbind(1), mask[..., None].unbind(1)):
+            h_new, c_new = self.cell(xi_t, h, c)
+            h, c = torch.where(keep, h_new, h), torch.where(keep, c_new, c)
+            outs.append(torch.where(keep, h_new, torch.zeros_like(h_new)))
+        return torch.stack(outs, dim=1)
+
+
+class LSTMStack(nn.Module):
+    """Masked LSTM layers one after another, without dropout between them
+    (the JAX RNNLM's `rnn_{i}` layers)."""
+
+    def __init__(self, input_size: int, num_layers: int, hidden_size: int, *, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            MaskedLSTMLayer(input_size if i == 0 else hidden_size, hidden_size, device=device)
+            for i in range(num_layers))
+
+    def forward(self, inputs, lengths):
+        x = inputs
+        for layer in self.layers:
+            x = layer(x, lengths)
+        return x
+
+    def step(self, x: torch.Tensor, state):
+        """One time step through every layer: x (N, D), state (h, c), each
+        (layers, N, H) -> the new (h, c); h's last layer is the output."""
+        hs, cs = [], []
+        for i, layer in enumerate(self.layers):
+            x, c = layer.cell(x @ layer.weight_ih.T, state[0][i], state[1][i])
+            hs.append(x)
+            cs.append(c)
+        return torch.stack(hs), torch.stack(cs)
 
 
 class GRUStack(nn.Module):

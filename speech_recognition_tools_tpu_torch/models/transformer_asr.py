@@ -49,8 +49,22 @@ the position's encoding is the row `pos` of the sinusoidal table.
 Cross-attention is computed from the memory at every step, as in the JAX
 package.
 
+Mixed precision (compute_dtype "bfloat16") is flax's `dtype=` idiom,
+written out module by module rather than with torch.autocast: the
+parameters stay float32 master weights (so checkpoints and the Adam state
+keep the float32 layout), and each Dense, Conv, Embed and attention casts
+its input and its weights to bfloat16 and computes there, the bias added
+after the product as flax adds it. A LayerNorm takes its statistics and
+its affine in float32 and returns bfloat16, and the attention takes its
+softmax in bfloat16, so the residual stream, the attention weights, the
+positional rows (cast to the activations' dtype) and the decode-mode
+key/value cache are bfloat16, as in the JAX model. The two logit heads
+(`ctc_head` and the decoder's `output`) are float32 Denses on the
+bfloat16 activations promoted to float32, so the logits, the loss and the
+gradients are float32. At "float32" every module computes exactly as
+before.
+
 io/jax_params.py carries a flax parameter tree over in both directions.
-The compute type is float32 (bf16 raises NotImplementedError).
 """
 
 import math
@@ -86,7 +100,20 @@ class TransformerASRConfig:
     # (-1 = unbounded); 0 = full attention
     attn_chunk: int = 0
     attn_left_chunks: int = -1
-    compute_dtype: str = "float32"  # 'bfloat16' is not ported
+    # "bfloat16": mixed precision with float32 master weights and logit heads
+    compute_dtype: str = "float32"
+
+    @property
+    def cdtype(self):
+        """The torch dtype the modules compute in (flax's `dtype=`): None
+        at float32, where every module computes as without the option."""
+        if self.compute_dtype == "float32":
+            return None
+        if self.compute_dtype == "bfloat16":
+            return torch.bfloat16
+        # the JAX config takes any jnp dtype name; its CLIs offer these two
+        raise NotImplementedError(f"compute_dtype={self.compute_dtype!r} is not ported "
+                                  "(float32 and bfloat16 are)")
 
     @property
     def blank_id(self):
@@ -137,40 +164,97 @@ def _posenc(length: int, dim: int, device) -> torch.Tensor:
     return _posenc_table(rows, dim, torch.device(device))[:length]
 
 
+def scalar_as(value: float, dtype: torch.dtype) -> float:
+    """A Python float rounded to `dtype`, as JAX rounds a weakly typed
+    scalar to the dtype of the array it multiplies (a no-op in effect at
+    float32, where torch rounds the scalar the same way)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
 def _embed_scale(h: torch.Tensor, adim: int) -> torch.Tensor:
-    """h * sqrt(adim) + sinusoidal positions."""
-    return h * float(np.sqrt(adim)) + _posenc(h.shape[1], adim, h.device)[None]
+    """h * sqrt(adim) + sinusoidal positions, in h's own dtype."""
+    pe = _posenc(h.shape[1], adim, h.device).to(h.dtype)
+    return h * scalar_as(float(np.sqrt(adim)), h.dtype) + pe[None]
+
+
+class Dense(nn.Linear):
+    """A Linear that computes as flax's Dense(dtype=cdtype): with a compute
+    dtype, the input, kernel and bias are cast to it and the bias is added
+    after the product; with None, F.linear in the parameters' float32."""
+
+    def __init__(self, in_features: int, out_features: int, cdtype=None, *, device=None):
+        super().__init__(in_features, out_features, device=device)
+        self.cdtype = cdtype
+
+    def forward(self, x):
+        if self.cdtype is None:
+            return super().forward(x)
+        c = self.cdtype
+        return x.to(c) @ self.weight.to(c).T + self.bias.to(c)
+
+
+class _CastConv:
+    """flax's Conv(dtype=cdtype) for a torch conv subclass: input, kernel
+    and bias cast to the compute dtype, the bias added after the conv."""
+
+    def __init__(self, *args, cdtype=None, **kw):
+        super().__init__(*args, **kw)
+        self.cdtype = cdtype
+
+    def forward(self, x):
+        if self.cdtype is None:
+            return super().forward(x)
+        c = self.cdtype
+        y = self._conv_forward(x.to(c), self.weight.to(c), None)
+        return y + self.bias.to(c).view(-1, *[1] * (y.dim() - 2))
+
+
+class Conv1d(_CastConv, nn.Conv1d):
+    pass
+
+
+class Conv2d(_CastConv, nn.Conv2d):
+    pass
 
 
 class LayerNorm(nn.Module):
-    """flax.linen.LayerNorm: epsilon 1e-6, variance E[x^2] - E[x]^2."""
+    """flax.linen.LayerNorm: epsilon 1e-6, variance E[x^2] - E[x]^2. With
+    a compute dtype (flax's dtype=), the statistics and the affine are
+    taken in float32 and the result is cast to it."""
 
-    def __init__(self, dim: int, eps: float = 1e-6, *, device=None):
+    def __init__(self, dim: int, eps: float = 1e-6, cdtype=None, *, device=None):
         super().__init__()
         self.eps = eps
+        self.cdtype = cdtype
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x):
+        if self.cdtype is not None:
+            return self._normalize(x.float()).to(self.cdtype)
+        return self._normalize(x)
+
+    def _normalize(self, x):
         mean = x.mean(-1, keepdim=True)
         var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
 class MultiHeadAttention(nn.Module):
-    """flax.linen.MultiHeadDotProductAttention(num_heads, qkv_features=dim)
-    without dropout. `mask` is a bool tensor broadcastable to (B, heads,
-    Tq, Tk); True = attend."""
+    """flax.linen.MultiHeadDotProductAttention(num_heads, qkv_features=dim,
+    dtype=cdtype) without dropout. `mask` is a bool tensor broadcastable
+    to (B, heads, Tq, Tk); True = attend. The logits, the softmax and the
+    weighted sum are in the projections' dtype."""
 
-    def __init__(self, dim: int, heads: int, *, device=None):
+    def __init__(self, dim: int, heads: int, cdtype=None, *, device=None):
         super().__init__()
         if dim % heads:
             raise ValueError(f"adim {dim} is not divisible by {heads} heads")
         self.heads = heads
-        self.query = nn.Linear(dim, dim, device=device)
-        self.key = nn.Linear(dim, dim, device=device)
-        self.value = nn.Linear(dim, dim, device=device)
-        self.out = nn.Linear(dim, dim, device=device)
+        self.query = Dense(dim, dim, cdtype, device=device)
+        self.key = Dense(dim, dim, cdtype, device=device)
+        self.value = Dense(dim, dim, cdtype, device=device)
+        self.out = Dense(dim, dim, cdtype, device=device)
 
     def forward(self, q_in, kv_in, mask, kv_cache=None, index=None):
         """kv_cache: a layer's {"k", "v"} (B, H, L, hd) cache (decode mode):
@@ -182,7 +266,8 @@ class MultiHeadAttention(nn.Module):
         def split(x):  # (B, T, D) -> (B, H, T, hd)
             return x.view(B, x.shape[1], H, hd).transpose(1, 2)
 
-        q = split(self.query(q_in)) / math.sqrt(hd)
+        q = self.query(q_in)
+        q = split(q) / scalar_as(math.sqrt(hd), q.dtype)
         k = split(self.key(kv_in))
         v = split(self.value(kv_in))
         if kv_cache is not None:
@@ -202,16 +287,16 @@ class MHABlock(nn.Module):
     def __init__(self, cfg: TransformerASRConfig, ff_dim: int, cross: bool = False,
                  *, device=None):
         super().__init__()
-        D = cfg.adim
-        self.norm_self = LayerNorm(D, device=device)
-        self.self_attn = MultiHeadAttention(D, cfg.aheads, device=device)
+        D, c = cfg.adim, cfg.cdtype
+        self.norm_self = LayerNorm(D, cdtype=c, device=device)
+        self.self_attn = MultiHeadAttention(D, cfg.aheads, c, device=device)
         if cross:
-            self.norm_src = LayerNorm(D, device=device)
-            self.src_attn = MultiHeadAttention(D, cfg.aheads, device=device)
+            self.norm_src = LayerNorm(D, cdtype=c, device=device)
+            self.src_attn = MultiHeadAttention(D, cfg.aheads, c, device=device)
         self.cross = cross
-        self.norm_ff = LayerNorm(D, device=device)
-        self.ff_in = nn.Linear(D, ff_dim, device=device)
-        self.ff_out = nn.Linear(ff_dim, D, device=device)
+        self.norm_ff = LayerNorm(D, cdtype=c, device=device)
+        self.ff_in = Dense(D, ff_dim, c, device=device)
+        self.ff_out = Dense(ff_dim, D, c, device=device)
         self.drop = nn.Dropout(cfg.dropout)
 
     def forward(self, x, self_mask, memory=None, memory_mask=None, kv_cache=None,
@@ -245,21 +330,21 @@ class ConformerBlock(nn.Module):
 
     def __init__(self, cfg: TransformerASRConfig, ff_dim: int, *, device=None):
         super().__init__()
-        D, k = cfg.adim, cfg.conv_kernel
-        self.ffn1_norm = LayerNorm(D, device=device)
-        self.ffn1_in = nn.Linear(D, ff_dim, device=device)
-        self.ffn1_out = nn.Linear(ff_dim, D, device=device)
-        self.mhsa_norm = LayerNorm(D, device=device)
-        self.mhsa = MultiHeadAttention(D, cfg.aheads, device=device)
-        self.conv_norm = LayerNorm(D, device=device)
-        self.conv_pointwise_in = nn.Linear(D, 2 * D, device=device)
-        self.conv_depthwise = nn.Conv1d(D, D, k, groups=D, device=device)
-        self.conv_mid_norm = LayerNorm(D, device=device)
-        self.conv_pointwise_out = nn.Linear(D, D, device=device)
-        self.ffn2_norm = LayerNorm(D, device=device)
-        self.ffn2_in = nn.Linear(D, ff_dim, device=device)
-        self.ffn2_out = nn.Linear(ff_dim, D, device=device)
-        self.final_norm = LayerNorm(D, device=device)
+        D, k, c = cfg.adim, cfg.conv_kernel, cfg.cdtype
+        self.ffn1_norm = LayerNorm(D, cdtype=c, device=device)
+        self.ffn1_in = Dense(D, ff_dim, c, device=device)
+        self.ffn1_out = Dense(ff_dim, D, c, device=device)
+        self.mhsa_norm = LayerNorm(D, cdtype=c, device=device)
+        self.mhsa = MultiHeadAttention(D, cfg.aheads, c, device=device)
+        self.conv_norm = LayerNorm(D, cdtype=c, device=device)
+        self.conv_pointwise_in = Dense(D, 2 * D, c, device=device)
+        self.conv_depthwise = Conv1d(D, D, k, groups=D, cdtype=c, device=device)
+        self.conv_mid_norm = LayerNorm(D, cdtype=c, device=device)
+        self.conv_pointwise_out = Dense(D, D, c, device=device)
+        self.ffn2_norm = LayerNorm(D, cdtype=c, device=device)
+        self.ffn2_in = Dense(D, ff_dim, c, device=device)
+        self.ffn2_out = Dense(ff_dim, D, c, device=device)
+        self.final_norm = LayerNorm(D, cdtype=c, device=device)
         self.drop = nn.Dropout(cfg.dropout)
         left = k - 1 if cfg.attn_chunk > 0 else (k - 1) // 2
         self.conv_pad = (left, k - 1 - left)
@@ -303,14 +388,14 @@ class Conv2dSubsampling(nn.Module):
     ReLU, then a Dense to adim. Subsampled frame j depends only on input
     frames 4j..4j+6, so batch padding never reaches a valid frame."""
 
-    def __init__(self, idim: int, adim: int, *, device=None):
+    def __init__(self, idim: int, adim: int, cdtype=None, *, device=None):
         super().__init__()
         if idim < 7:
             raise ValueError(f"Conv2dSubsampling needs at least 7 feature dims; got {idim}")
         d2 = ((idim - 1) // 2 - 1) // 2
-        self.conv0 = nn.Conv2d(1, adim, 3, stride=2, device=device)
-        self.conv1 = nn.Conv2d(adim, adim, 3, stride=2, device=device)
-        self.out = nn.Linear(d2 * adim, adim, device=device)
+        self.conv0 = Conv2d(1, adim, 3, stride=2, cdtype=cdtype, device=device)
+        self.conv1 = Conv2d(adim, adim, 3, stride=2, cdtype=cdtype, device=device)
+        self.out = Dense(d2 * adim, adim, cdtype, device=device)
 
     def forward(self, x, lengths):
         B, T, D = x.shape
@@ -337,10 +422,10 @@ class TransformerEncoder(nn.Module):
         self.cfg = cfg
         self.conformer = cfg.encoder_type == "conformer"
         block = ConformerBlock if self.conformer else MHABlock
-        self.embed = Conv2dSubsampling(idim, cfg.adim, device=device)
+        self.embed = Conv2dSubsampling(idim, cfg.adim, cfg.cdtype, device=device)
         self.layers = nn.ModuleList(
             block(cfg, cfg.eunits, device=device) for _ in range(cfg.elayers))
-        self.after_norm = LayerNorm(cfg.adim, device=device)
+        self.after_norm = LayerNorm(cfg.adim, cdtype=cfg.cdtype, device=device)
         self.drop = nn.Dropout(cfg.dropout)
 
     def forward(self, feats, lengths):
@@ -358,6 +443,12 @@ class TransformerEncoder(nn.Module):
         return self.after_norm(h), out_len
 
 
+def _head(linear: nn.Linear, h: torch.Tensor) -> torch.Tensor:
+    """A logit head: flax's Dense(dtype=None) promotes bfloat16 activations
+    to its float32 parameters' dtype."""
+    return linear(h.to(linear.weight.dtype))
+
+
 class TransformerDecoder(nn.Module):
     """Full-prefix decoder: tokens (N, U) with -1 padding -> logits (N, U, V);
     `step` is one KV-cached step of decode mode."""
@@ -369,27 +460,35 @@ class TransformerDecoder(nn.Module):
         self.layers = nn.ModuleList(
             MHABlock(cfg, cfg.dunits, cross=True, device=device)
             for _ in range(cfg.dlayers))
-        self.after_norm = LayerNorm(cfg.adim, device=device)
+        self.after_norm = LayerNorm(cfg.adim, cdtype=cfg.cdtype, device=device)
+        # the logit head computes in float32 on the promoted activations
         self.output = nn.Linear(cfg.adim, cfg.vocab_size, device=device)
         self.drop = nn.Dropout(cfg.dropout)
+
+    def _embed(self, tokens):
+        """flax's Embed(dtype=cdtype): rows of the table cast to it."""
+        w = self.embed.weight
+        return F.embedding(tokens.clamp_min(0), w if self.cfg.cdtype is None
+                           else w.to(self.cfg.cdtype))
 
     def forward(self, tokens, memory, memory_len):
         U = tokens.shape[1]
         dev = tokens.device
-        h = self.drop(_embed_scale(self.embed(tokens.clamp_min(0)), self.cfg.adim))
+        h = self.drop(_embed_scale(self._embed(tokens), self.cfg.adim))
         causal = torch.ones(U, U, dtype=torch.bool, device=dev).tril()
         self_mask = (tokens != -1)[:, None, None, :] & causal[None, None]
         mem_mask = (torch.arange(memory.shape[1], device=dev)[None, :]
                     < memory_len[:, None])[:, None, None, :]
         for layer in self.layers:
             h = layer(h, self_mask, memory, mem_mask)
-        return self.output(self.after_norm(h))
+        return _head(self.output, self.after_norm(h))
 
-    def init_cache(self, batch: int, length: int, dtype, device):
-        """A zero key/value cache of `length` positions for each layer, its
-        index at 0."""
+    def init_cache(self, batch: int, length: int, device):
+        """A zero key/value cache of `length` positions for each layer, in
+        the compute dtype (the key/value projections'), its index at 0."""
         H = self.cfg.aheads
         shape = (batch, H, length, self.cfg.adim // H)
+        dtype = self.cfg.cdtype or torch.float32
         return {"index": 0, "layers": [
             {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -408,16 +507,16 @@ class TransformerDecoder(nn.Module):
             raise ValueError(f"the decode cache holds {L} positions; step {index} "
                              "is past its end")
         dev = last_tokens.device
-        pe = _posenc(pos + 1, self.cfg.adim, dev)[pos]
-        h = self.drop(self.embed(last_tokens.clamp_min(0)) * float(np.sqrt(self.cfg.adim))
-                      + pe)
+        h = self._embed(last_tokens)
+        pe = _posenc(pos + 1, self.cfg.adim, dev)[pos].to(h.dtype)
+        h = self.drop(h * scalar_as(float(np.sqrt(self.cfg.adim)), h.dtype) + pe)
         self_mask = (torch.arange(L, device=dev) <= index)[None, None, None, :]
         mem_mask = (torch.arange(memory.shape[1], device=dev)[None, :]
                     < memory_len[:, None])[:, None, None, :]
         for layer, kv in zip(self.layers, cache["layers"]):
             h = layer(h, self_mask, memory, mem_mask, kv, index)
         cache["index"] = index + 1
-        return self.output(self.after_norm(h))
+        return _head(self.output, self.after_norm(h))
 
 
 class TransformerASR(nn.Module):
@@ -426,23 +525,21 @@ class TransformerASR(nn.Module):
 
     `idim` is the feature dimension (flax infers it from the first input).
     `device` defaults to "cuda" and raises without a card; pass "cpu" to
-    build the model on the CPU. On CUDA it switches TF32 off process-wide
-    (device.configure_cuda): the JAX package computes in full float32.
+    build the model on the CPU. On CUDA it sets the matmul flags
+    process-wide (device.configure_cuda): no TF32, and bfloat16 products
+    reduced in float32, as XLA computes them.
     """
 
     def __init__(self, cfg: TransformerASRConfig = TransformerASRConfig(),
                  idim: int = 80, *, device="cuda"):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r} is not yet ported (float32 only; "
-                "ROADMAP Queue 1 item 1: bf16 compute)")
         dev = resolve_device(device)
         if dev.type == "cuda":
             configure_cuda()
         self.cfg = cfg
         self.encoder = TransformerEncoder(cfg, idim, device=dev)
         self.decoder = TransformerDecoder(cfg, device=dev)
+        # the CTC head computes in float32 on the promoted activations
         self.ctc_head = nn.Linear(cfg.adim, cfg.vocab_size, device=dev)
         self.reset_parameters()
 
@@ -467,7 +564,7 @@ class TransformerASR(nn.Module):
     def forward(self, feats, lengths, tokens_in):
         memory, enc_len = self.encoder(feats, lengths)
         dec_logits = self.decoder(tokens_in, memory, enc_len)
-        return self.ctc_head(memory), dec_logits, enc_len
+        return _head(self.ctc_head, memory), dec_logits, enc_len
 
     def encode(self, feats, lengths):
         """(B, T, idim), (B,) -> memory (B, T2, adim), enc_len (B,),
@@ -475,7 +572,7 @@ class TransformerASR(nn.Module):
         JAX `encode` runs deterministically."""
         with _eval_mode(self):
             memory, enc_len = self.encoder(feats, lengths)
-            return memory, enc_len, self.ctc_head(memory)
+            return memory, enc_len, _head(self.ctc_head, memory)
 
     def decode_step(self, tokens, memory, enc_len):
         """Full-prefix decoder pass, without dropout: the scores for the
@@ -486,12 +583,12 @@ class TransformerASR(nn.Module):
 
     def decode_init_cache(self, dummy_tokens, memory, enc_len):
         """The decode-mode cache sized by dummy_tokens (N, max_len + 1): zero
-        keys and values of memory's dtype and device, index 0 (what the
-        JAX method creates under mutable=['cache']; the full pass it also
-        runs is discarded there)."""
+        keys and values of the compute dtype on memory's device, index 0
+        (what the JAX method creates under mutable=['cache']; the full pass
+        it also runs is discarded there)."""
         del enc_len
         return self.decoder.init_cache(dummy_tokens.shape[0], dummy_tokens.shape[1],
-                                       memory.dtype, memory.device)
+                                       memory.device)
 
     def decode_incremental(self, last_tokens, pos, memory, enc_len, cache, pe_len=4096):
         """One KV-cached decoder step, without dropout: last_tokens (N, 1) at

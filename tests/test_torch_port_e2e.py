@@ -211,8 +211,8 @@ def test_posenc_tables_byte_identical():
                                       np.asarray(jtasr.chunk_attention_mask(T, chunk, left)))
 
 
-@pytest.mark.parametrize("cfg", [dict(compute_dtype="bfloat16"),
-                                 dict(compute_dtype="bfloat16", encoder_type="conformer")])
+@pytest.mark.parametrize("cfg", [dict(compute_dtype="float16"),
+                                 dict(compute_dtype="float16", encoder_type="conformer")])
 def test_unported_options_raise(cfg):
     with pytest.raises(NotImplementedError):
         ttasr.TransformerASR(ttasr.TransformerASRConfig(**cfg), D, device="cpu")

@@ -259,8 +259,8 @@ def test_each_cli_resumes_from_the_others_epoch(tmp_path, capsys, first):
     _tree_close(p_a, p_b, atol=1e-4)
 
 
-@pytest.mark.parametrize("extra,match", [(["--unit", "word"], "item 5"),
-                                         (["--cell", "lstm"], "item 2")],
+@pytest.mark.parametrize("extra,match", [(["--unit", "word"], "item 3"),
+                                         (["--unit", "word", "--cell", "lstm"], "item 3")],
                          ids=["extra0-item 10", "extra1-item 7"])
 def test_unported_train_lm_options_raise(tmp_path, extra, match):
     text = _write_text(tmp_path / "text", _texts())

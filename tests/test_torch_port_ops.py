@@ -90,8 +90,8 @@ def test_import_checks_cover_the_serving_modules():
     """The two isolation tests above and below walk the whole package; the
     serving path's modules, the LM-training stage's, the hybrid decode
     end's, the MFCC / mel front-ends', the modulation spectrum's and the
-    high-precision FDLP and incremental decoder's are among what they
-    walk."""
+    high-precision FDLP and incremental decoder's, and the checkpoint
+    importer's are among what they walk."""
     mods = set(_port_modules())
     for m in ("dsp.streaming", "infer.streaming_asr", "eval.wer", "cli.recog_e2e",
               "cli.serve", "cli.serve_client", "cli.transcribe",
@@ -104,7 +104,7 @@ def test_import_checks_cover_the_serving_modules():
               "dsp.modspec", "cli.compute_modulation_spectrum", "ops.autocorr",
               "ops.levinson", "ops.cepstrum", "ops.dct", "dsp.fdlp",
               "cli.compute_fdlp_spectrogram", "models.transformer_asr",
-              "decode.beam_jit"):
+              "decode.beam_jit", "io.torch_import", "cli.import_torch_ckpt"):
         assert f"speech_recognition_tools_tpu_torch.{m}" in mods, m
 
 

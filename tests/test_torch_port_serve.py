@@ -354,7 +354,8 @@ def test_recog_e2e_streaming_beam_equals_offline(model_dir, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra", [["--api", "cl"], ["--word_lm_dir", "x"],
-                                   ["--ring_attention", "2"], ["--compute_dtype", "bfloat16"]])
+                                   ["--ring_attention", "2"],
+                                   ["--api", "cl", "--compute_dtype", "bfloat16"]])
 def test_recog_e2e_unported_flags_raise(model_dir, tmp_path, extra):
     d, _, _ = model_dir
     with pytest.raises(NotImplementedError):

@@ -489,8 +489,7 @@ def test_train_e2e_main_checkpoints_both_ways(tmp_path):
     assert tcli.resolve_init_checkpoint(src) == (os.path.join(src, "final"), src)
     assert os.path.isdir(os.path.join(warm, "final_avg"))
 
-    for bad in (["--tensor_parallel", "2"], ["--pipeline_parallel", "2"], ["--data_parallel"],
-                ["--compute_dtype", "bfloat16"]):
+    for bad in (["--tensor_parallel", "2"], ["--pipeline_parallel", "2"], ["--data_parallel"]):
         with pytest.raises(NotImplementedError):
             tcli.main([egs, text, str(tmp_path / "x"), *geo, "--device", "cpu", *bad])
 
