@@ -178,9 +178,25 @@ exits non-zero. Phases:
      dump_outputs on the imported hybrid model over phase 6's egs; each
      imported model held to its torch reconstruction on the card
      (IMPORT_*_ATOL);
-  13. one JSON line describing every kernel of the port (`launches` is the
+  13. (a) the hybrid recipes' stage 6 at timit_hybrid (PM_TRAIN): FDLP
+     (K1, counted, then held to its plain version on the path's lags) of
+     32 held-out utterances with phase 6's CMVN -> dump_outputs --prior of
+     phase 6's AM -> build_egs of the 3,376-dim log-likelihoods ->
+     train_am.main --arch pm_ae --loss mse (2 + 2 x 512, bn 64; one epoch
+     of 2 batches of 32) -> pm_score_cli pm (reconstruction and
+     --contrastive) and mmeasure: ms a PM step, scores per second, scores
+     card against CPU (ZOO_OUT_REL). (b) every other arch of the recurrent
+     half at train_am's defaults (ZOO_TRAIN) over phase 6's egs, with
+     vae --use_transformer (over phase 7's 80-band egs), multimod
+     --multi_egs_dirs, feedforward
+     --frame_egs, vae_encoded / curl_encoded on the vae / curl just trained
+     and curl --expand_from: ms a step; on the initial weights, the
+     first-step loss card against CPU with the same noise (ZOO_LOSS_REL)
+     and dump_outputs card against CPU (ZOO_OUT_REL); tandem_feats
+     --get_pca on phase 6's AM;
+  14. one JSON line describing every kernel of the port (`launches` is the
      hybrid main path's count, `launches_by_path` each path's);
-  14. the run's time, the card's name and power limit again, then the last
+  15. the run's time, the card's name and power limit again, then the last
      line: {"ok": true, "device": {...}}.
 """
 
@@ -366,6 +382,25 @@ LSTM_SEARCH_UTTS = 4
 # 1e-4)
 IMPORT_E2E_ATOL, IMPORT_LM_ATOL, IMPORT_HYB_ATOL = 1e-3, 1e-4, 1e-3
 IMPORT_UTTS, IMPORT_RECOG_MAX_LEN = 2, 50
+# phase 13 (a): the hybrid recipes' stage 6 (recipes/run_corpus.py:884-909)
+# at timit_hybrid's "pm" block (timit_hybrid.json:33-39): PM_UTTS held-out
+# utterances of 1-2.5 s through phase 6's AM; each of their log-likelihood
+# matrices twice in the PM egs, so that one epoch is 2 batches of 32
+PM_TRAIN = dict(num_layers=2, num_layers_dec=2, hidden_dim=512, bn_dim=64, batch_size=32,
+                epochs=1)
+PM_UTTS = 32
+# phase 13 (b): every other arch of the recurrent half at train_am's
+# defaults over phase 6's egs (each utterance twice: 2 batches of 32)
+ZOO_TRAIN = dict(num_layers=3, num_layers_dec=1, hidden_dim=512, bn_dim=64, comp_num=2,
+                 batch_size=32, epochs=1)
+# card against CPU on the ZOO_CPU_UTTS shortest utterances, the same weights
+# and the same noise (drawn on the CPU): the first-step loss within
+# ZOO_LOSS_REL (phase 6's limit for the rnn step), dump_outputs and the PM
+# scores within ZOO_OUT_REL of their scale (the CPU tests hold the port to
+# JAX at 1e-5 of the scale at 2 layers; phase 4 holds the 3 x 512 GRU's
+# logits card vs CPU to 1e-4)
+ZOO_CPU_UTTS = 4
+ZOO_LOSS_REL, ZOO_OUT_REL = 1e-5, 1e-4
 
 # (order, coeff_num) of the front-ends in recipes/configs: wsj/chime4/
 # conformer e2e, timit_hybrid, reverb
@@ -2931,6 +2966,322 @@ def import_phase(feats, nfr, hyb_idim, dev, tmp, seed):
         f"(c) took {time.perf_counter() - t_phase:.1f} s")
 
 
+class _StepTimes:
+    """Times every Trainer.train_step (synchronised) while active, so that
+    train_am.main's own steps give ms a step."""
+
+    def __enter__(self):
+        from speech_recognition_tools_tpu_torch.train import trainer
+
+        self.cls, self.orig, self.times = trainer.Trainer, trainer.Trainer.train_step, []
+        orig, times = self.orig, self.times
+
+        def timed(tr, state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(tr, state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+
+        self.cls.train_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_step = self.orig
+
+
+def _max_rel(got, want):
+    """max |got - want| over the largest |want|, across dicts of arrays."""
+    scale = max(float(np.abs(v).max()) for v in want.values())
+    return max(float(np.abs(got[k] - want[k]).max()) for k in want) / max(scale, 1e-30)
+
+
+def _argv(flags):
+    return [a for k, v in flags.items() for a in (f"--{k}", str(v))]
+
+
+def pm_stage_phase(rng, dev, tmp):
+    """Phase 13 (a): the hybrid recipes' stage 6 at timit_hybrid on the card:
+    FDLP featgen (K1) of PM_UTTS held-out utterances with phase 6's CMVN ->
+    dump_outputs --prior of phase 6's AM (3 x 512 GRU, 3,376 classes) ->
+    build_egs of the log-likelihoods -> train_am.main --arch pm_ae --loss
+    mse at the pm block (2 + 2 x 512, bn 64) -> pm_score_cli pm
+    (reconstruction, --contrastive) and pm_score_cli mmeasure on the AM's
+    posteriors. K1 is counted over the path and then held to its plain
+    version on the path's own lags; the PM scores on the card are held to
+    the CPU's on the same checkpoints. Returns K1's launches."""
+    import os
+    import pickle
+
+    from speech_recognition_tools_tpu_torch.cli import dump_outputs, pm_score_cli, train_am
+    from speech_recognition_tools_tpu_torch.dsp.fdlp import (
+        FdlpConfig,
+        fdlp_lags,
+        fdlp_spectrogram_batch,
+    )
+    from speech_recognition_tools_tpu_torch.io.egs import build_egs, load_egs
+    from speech_recognition_tools_tpu_torch.io.kaldi_ark import read_mat_scp
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import (
+        lpc_cepstra,
+        lpc_cepstra_reference,
+    )
+
+    t_phase = time.perf_counter()
+    hyb = FdlpConfig()
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    xp, lp = speechlike_batch(rng, PM_UTTS, 1.0, 2.5)
+    audio_s = float(lp.sum()) / hyb.srate
+    t = {}
+
+    lpc_cepstra.launches = 0
+    t0 = time.perf_counter()
+    feats, nfr = fdlp_spectrogram_batch(xp, lp, hyb, device=dev)
+    cfg_egs, _ = load_egs(j("hyb_egs"))
+    cmvn = (np.asarray(cfg_egs.cmvn_mean), np.asarray(cfg_egs.cmvn_std))
+    keys = [f"pm{b:02d}" for b in range(PM_UTTS)]
+    rows = [(k, feats[b, : int(nfr[b])].cpu().numpy()) for b, k in enumerate(keys)]
+    build_egs(iter(rows), j("pm_feat_egs"), cmvn=cmvn)
+    short = sorted(range(PM_UTTS), key=lambda b: int(nfr[b]))[:ZOO_CPU_UTTS]
+    build_egs(iter(rows[b] for b in short), j("pm_feat_small"), cmvn=cmvn)
+    t["featgen + egs"] = time.perf_counter() - t0
+    t["dump_outputs"], _ = _synced(lambda: dump_outputs.main(
+        [j("hyb_am"), j("pm_feat_egs"), j("pm_ll"), "--prior", j("prior.pkl"),
+         "--device", str(dev)]))
+    lls = dict(read_mat_scp(j("pm_ll.scp")))
+    t0 = time.perf_counter()
+    build_egs(((f"{k}_{c}", v) for c in range(2) for k, v in lls.items()), j("pm_egs"))
+    build_egs(((k, lls[k]) for k in (keys[b] for b in short)), j("pm_small"))
+    t["build_egs"] = time.perf_counter() - t0
+    with _StepTimes() as steps:
+        t["train_am pm_ae"], st = _synced(lambda: train_am.main(
+            [j("pm_egs"), j("pm"), "--arch", "pm_ae", "--loss", "mse", *_argv(PM_TRAIN),
+             "--device", str(dev)]))
+    scores = {}
+    for mode, flags in (("recon", []), ("contrastive", ["--contrastive"])):
+        t[f"pm_score_cli pm {mode}"], scores[mode] = _synced(lambda: pm_score_cli.main(
+            ["pm", j("hyb_am"), j("pm"), j("pm_feat_egs"), j(f"pm_{mode}.pkl"), *flags,
+             "--device", str(dev)]))
+    t["dump_outputs --add_softmax"], _ = _synced(lambda: dump_outputs.main(
+        [j("hyb_am"), j("pm_feat_egs"), j("pm_post"), "--add_softmax", "--device", str(dev)]))
+    t["pm_score_cli mmeasure"], mm = _synced(lambda: pm_score_cli.main(
+        ["mmeasure", j("pm_post.scp"), j("pm_mm.pkl")]))
+    torch.cuda.synchronize()
+    launches = lpc_cepstra.launches
+    assert launches > 0, "the PM stage's featgen did not launch K1"
+
+    assert len(st.history) == 1 and np.isfinite(st.history[0]["train_loss"]), st.history
+    assert len(steps.times) == 2, steps.times
+    for mode in scores:
+        assert sorted(scores[mode]) == keys and all(np.isfinite(v)
+                                                    for v in scores[mode].values()), mode
+        with open(j(f"pm_{mode}.pkl"), "rb") as f:
+            assert pickle.load(f) == scores[mode]
+    assert sorted(mm) == keys and all(np.isfinite(v) for v in mm.values())
+    # the card's scores against the CPU's on the same checkpoints
+    score_err = {}
+    for mode, flags in (("recon", []), ("contrastive", ["--contrastive"])):
+        got = {d: pm_score_cli.main(["pm", j("hyb_am"), j("pm"), j("pm_feat_small"),
+                                     j(f"pm_small_{d}.pkl"), *flags, "--device", d])
+               for d in (str(dev), "cpu")}
+        score_err[mode] = _max_rel({k: np.float64(v) for k, v in got[str(dev)].items()},
+                                   {k: np.float64(v) for k, v in got["cpu"].items()})
+        assert score_err[mode] <= ZOO_OUT_REL, (mode, score_err[mode])
+    # K1 on the path's own lags against its plain version
+    r, _ = fdlp_lags(xp, lp, hyb, device=dev)
+    r = r.reshape(-1, r.shape[-1])
+    got = lpc_cepstra(r, hyb.order, hyb.coeff_num)
+    ref = lpc_cepstra_reference(r, hyb.order, hyb.coeff_num)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _, k1_t, k1_rel = cep_agreement(f"PM-stage lags P={r.shape[0]}", got, ref)
+    assert k1_t <= MAIN_PATH_TOL and k1_rel <= MAIN_PATH_REL, (k1_t, k1_rel)
+
+    frames = int(nfr.sum())
+    log(f"[pm-stage] timit_hybrid stage 6: {PM_UTTS} held-out utterances of 1-2.5 s "
+        f"({audio_s:.1f} s audio, {frames} frames) -> phase 6's AM -> {HYBRID_CLASSES}-dim "
+        f"log-likelihood egs (each twice) -> train_am --arch pm_ae --loss mse "
+        f"{PM_TRAIN['num_layers']} + {PM_TRAIN['num_layers_dec']} x {PM_TRAIN['hidden_dim']}, "
+        f"bn {PM_TRAIN['bn_dim']}, 1 epoch of 2 batches of {PM_TRAIN['batch_size']}: train "
+        f"{st.history[0]['train_loss']:.4f} dev {st.history[0]['dev_loss']:.4f}; K1 launches "
+        f"{launches}")
+    log(f"[pm-stage] ms a PM step (synchronised): "
+        + ", ".join(f"{s * 1e3:.1f}" for s in steps.times)
+        + f"; scores per s: reconstruction {PM_UTTS / t['pm_score_cli pm recon']:.1f}, "
+        f"contrastive {PM_UTTS / t['pm_score_cli pm contrastive']:.1f} (CLI wall, AM + PM "
+        f"on the card); m-measure {PM_UTTS / t['pm_score_cli mmeasure']:.1f} per s (host)")
+    log(f"[pm-stage] scores card vs cpu ({ZOO_CPU_UTTS} utterances): reconstruction "
+        f"{score_err['recon']:.3e}, contrastive {score_err['contrastive']:.3e} of their scale "
+        f"(limit {ZOO_OUT_REL}); sample scores {scores['recon'][keys[0]]:.4f} / "
+        f"{scores['contrastive'][keys[0]]:.4f}, m-measure {mm[keys[0]]:.3e}")
+    log("[pm-stage] wall s by stage: " + ", ".join(f"{k} {v:.3f}" for k, v in t.items())
+        + f"; phase 13 (a) took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def zoo_phase(dev, tmp):
+    """Phase 13 (b): every other arch of the recurrent half through
+    train_am.main on the card at its defaults (3 layers, num_layers_dec 1,
+    hidden 512, bn 64, comp_num 2) over phase 6's timit_hybrid egs (20-dim
+    FDLP, 3,376 classes; each utterance twice: one epoch of 2 batches of
+    32): vae also with --use_transformer (over phase 7's 80-band
+    wsj_fdlp_e2e egs: flax's 16 heads need a width they divide; 64
+    utterances of 6-10 s), multimod also with
+    --multi_egs_dirs (a delta stream), feedforward also with --frame_egs
+    (context 4, two batches of half the frames), vae_encoded and
+    curl_encoded on the vae and curl just trained, curl --expand_from the
+    curl just trained. Each: ms a step; on the weights the training starts
+    from (train_am.main --epochs 0), the first-step loss card vs CPU with
+    the same noise and dump_outputs card vs CPU. Then tandem_feats
+    --get_pca on phase 6's AM."""
+    import os
+
+    from speech_recognition_tools_tpu_torch.cli import dump_outputs, tandem_feats, train_am
+    from speech_recognition_tools_tpu_torch.io.egs import (
+        build_egs,
+        build_frame_egs,
+        iter_egs_batches,
+        iter_egs_batches_multi,
+        iter_frame_batches,
+        load_egs,
+    )
+    from speech_recognition_tools_tpu_torch.io.kaldi_ark import read_ark
+    from speech_recognition_tools_tpu_torch.utils.transforms import add_deltas
+
+    t_phase = time.perf_counter()
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    _, utts = load_egs(j("hyb_egs"))
+    deltas = {k: add_deltas(torch.as_tensor(f), order=1)[:, f.shape[1]:].numpy()
+              for k, f, _ in utts}
+    twice = [(f"{k}_{c}", f, lab) for c in range(2) for k, f, lab in utts]
+    labels = {k: lab for k, _, lab in twice}
+    build_egs(((k, f) for k, f, _ in twice), j("zoo_egs"), labels, num_targets=HYBRID_CLASSES)
+    build_egs(((k, deltas[k[:-2]]) for k, _, _ in twice), j("zoo_delta_egs"), labels,
+              num_targets=HYBRID_CLASSES)
+    short = sorted(utts, key=lambda u: len(u[1]))[:ZOO_CPU_UTTS]
+    build_egs(((k, f) for k, f, _ in short), j("zoo_small"), {k: v for k, _, v in short},
+              num_targets=HYBRID_CLASSES)
+    build_egs(((k, deltas[k]) for k, _, _ in short), j("zoo_small_delta"),
+              {k: v for k, _, v in short}, num_targets=HYBRID_CLASSES)
+    build_frame_egs(((k, f) for k, f, _ in utts), j("zoo_frame_egs"),
+                    {k: v for k, _, v in utts}, num_targets=HYBRID_CLASSES)
+    n_frames = sum(len(f) for _, f, _ in utts)
+    # the transformer VAE over phase 7's wsj_fdlp_e2e egs (80 bands with
+    # global CMVN): flax's 16 heads need an input width they divide, which
+    # timit_hybrid's 20 bands are not
+    _, e2e_utts = load_egs(j("e2e_egs"))
+    build_egs(((k, f) for k, f, _ in sorted(e2e_utts, key=lambda u: len(u[1]))[:ZOO_CPU_UTTS]),
+              j("e2e_small"))
+    base = _argv(ZOO_TRAIN)
+    # name -> (train_am flags, egs, dump egs (+ flags) or None)
+    cases = {
+        "linear": (["--arch", "linear"], "zoo_egs", ["zoo_small"]),
+        "feedforward": (["--arch", "feedforward"], "zoo_egs", ["zoo_small", "--layer", "1"]),
+        "feedforward --frame_egs": (["--arch", "feedforward", "--frame_egs", "--batch_size",
+                                     str(n_frames // 2)], "zoo_frame_egs", None),
+        "multitask_ae": (["--arch", "multitask_ae"], "zoo_egs", ["zoo_small"]),
+        "multitask_aear": (["--arch", "multitask_aear"], "zoo_egs", ["zoo_small"]),
+        "multimod --multi_egs_dirs": (["--arch", "multimod", "--multi_egs_dirs",
+                                       j("zoo_delta_egs")], "zoo_egs",
+                                      ["zoo_small", "--multi_egs_dirs", j("zoo_small_delta")]),
+        "vae": (["--arch", "vae"], "zoo_egs", ["zoo_small"]),
+        "vae --use_transformer": (["--arch", "vae", "--use_transformer"], "e2e_egs",
+                                  ["e2e_small"]),
+        "vae_classifier": (["--arch", "vae_classifier"], "zoo_egs", ["zoo_small"]),
+        # the JAX dump_outputs indexes arvae's and curl_unsup's decoder axis
+        # by utterance (ROADMAP Queue 3); the port does the same: no dump
+        "arvae": (["--arch", "arvae"], "zoo_egs", None),
+        "vae_encoded": (["--arch", "vae_encoded", "--base_model", j("zoo_vae")], "zoo_egs",
+                        ["zoo_small"]),
+        "apc": (["--arch", "apc"], "zoo_egs", ["zoo_small"]),
+        "curl": (["--arch", "curl"], "zoo_egs", ["zoo_small"]),
+        "curl --expand_from": (["--arch", "curl", "--expand_from", j("zoo_curl")], "zoo_egs",
+                               ["zoo_small"]),
+        "curl_unsup": (["--arch", "curl_unsup"], "zoo_egs", None),
+        "curl_encoded": (["--arch", "curl_encoded", "--base_model", j("zoo_curl")], "zoo_egs",
+                         ["zoo_small"]),
+    }
+    rows = []
+    for name, (flags, egs, dump) in cases.items():
+        store = j("zoo_" + name.replace(" --", "_").replace(" ", "_"))
+        argv = [j(egs), store, *base, *flags]
+        # the weights the training starts from (train_am draws them on the
+        # CPU from --seed): the card-vs-CPU checks run on them
+        init = store + "_init"
+        train_am.main([j(egs), init, *base, *flags, "--epochs", "0", "--device", str(dev)])
+        with _StepTimes() as steps:
+            t_main, st = _synced(lambda: train_am.main([*argv, "--device", str(dev)]))
+        assert len(st.history) == 1 and all(np.isfinite(v) for v in (
+            st.history[0]["train_loss"], st.history[0]["dev_loss"])), (name, st.history)
+        assert len(steps.times) == 2, (name, steps.times)
+        # the first-step loss on the card and on the CPU: the initial
+        # weights, the ZOO_CPU_UTTS shortest utterances, the same noise
+        args = train_am.get_parser().parse_args(argv)
+        if args.frame_egs:
+            small = next(iter_frame_batches(j(egs), 64))
+        elif args.multi_egs_dirs:
+            small = next(iter_egs_batches_multi([j("zoo_small"), j("zoo_small_delta")], 4))
+        else:
+            small = next(iter_egs_batches(j(dump[0] if dump else "zoo_small"), ZOO_CPU_UTTS))
+        # the transformer VAE's logvar reaches ~17 on these features at
+        # init (no LayerNorm before its heads): its KL term exp(2 logvar)
+        # and its sample exp(logvar) * eps amplify float32 rounding past the
+        # limits, so its loss and its forward are compared in float64
+        dtype = torch.float64 if args.use_transformer else torch.float32
+        loss, fwd = {}, {}
+        for d in (str(dev), "cpu"):
+            model, _, cfg = dump_outputs.load_model_from_checkpoint(init, d)
+            enc = None
+            if args.base_model:
+                enc, _ = dump_outputs.load_frozen_encoder(args.base_model, args.arch, d)
+            fn = train_am.make_loss(args, enc, torch.Generator().manual_seed(11))
+            batch = {k: (v.to(dtype) if v.is_floating_point() else v) if torch.is_tensor(v)
+                     else [s.to(dtype) for s in v]
+                     for k, v in train_am.batch_on_device(small, torch.device(d)).items()}
+            with torch.no_grad():
+                loss[d] = fn(model.to(dtype), batch, True)[0].item()
+                if args.use_transformer:
+                    fwd[d] = {"out": dump_outputs.arch_forward(
+                        model, cfg, batch["feats"], batch["lengths"],
+                        torch.Generator().manual_seed(2))[0].cpu().numpy()}
+        loss_rel = _rel(loss[str(dev)], loss["cpu"])
+        assert np.isfinite(loss["cpu"]) and loss_rel <= ZOO_LOSS_REL, (name, loss)
+        out_rel = None
+        if dump:
+            arks = {}
+            for d in (str(dev), "cpu")[: 1 if fwd else 2]:
+                dump_outputs.main([init, j(dump[0]), j(f"zoo_out_{d}"), *dump[1:],
+                                   "--device", d])
+                arks[d] = dict(read_ark(j(f"zoo_out_{d}.ark")))
+            assert all(np.isfinite(v).all() for v in arks[str(dev)].values()), name
+            ref = fwd or arks
+            out_rel = _max_rel(ref[str(dev)], ref["cpu"])
+            assert out_rel <= ZOO_OUT_REL, (name, out_rel)
+        rows.append((name, steps.times, t_main, st.history[0], loss[str(dev)], loss_rel,
+                     out_rel))
+    for name, times, t_main, h, l0, lrel, orel in rows:
+        log(f"[zoo] {name:26s} ms a step {times[0] * 1e3:8.1f} / {times[1] * 1e3:8.1f} "
+            f"(first / second); train_am.main {t_main:6.2f} s; train {h['train_loss']:.4f} dev "
+            f"{h['dev_loss']:.4f}; first-step loss card {l0:.6f}, rel to cpu {lrel:.2e} (limit "
+            f"{ZOO_LOSS_REL}); dump_outputs card vs cpu "
+            + (f"{orel:.2e} of scale (limit {ZOO_OUT_REL})" if orel is not None else "not run")
+            + (" (loss and forward in float64; the dump on the card only)"
+               if "use_transformer" in name else ""))
+    # tandem features (PCA) of phase 6's AM, card against CPU
+    tand = {}
+    for d in (str(dev), "cpu"):
+        tandem_feats.main([j("hyb_am"), j("zoo_small"), j(f"tandem_{d}"), "--get_pca",
+                           "--pca_dim", "40", "--device", d])
+        tand[d] = dict(read_ark(j(f"tandem_{d}.ark")))
+    pca = dict(read_ark(j(f"tandem_{dev}_pca.ark")))
+    assert all(v.shape[1] == 40 and np.isfinite(v).all() for v in pca.values())
+    tand_rel = _max_rel(tand[str(dev)], tand["cpu"])
+    assert tand_rel <= ZOO_OUT_REL, tand_rel
+    log(f"[zoo] tandem_feats --get_pca --pca_dim 40 on phase 6's AM: presoftmax card vs cpu "
+        f"{tand_rel:.2e} of scale (limit {ZOO_OUT_REL}); {len(cases)} archs / flag sets; "
+        f"phase 13 (b) took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3208,8 +3559,13 @@ def main():
         lstm_lm_phase(e2e_model, e2e.nfilters, dev, tmp)
         import_phase(feats_n, nfr_n, hyb.nfilters, dev, tmp, args.seed)
         log(f"[phase12] {time.perf_counter() - t12:.2f} s")
+        # ---- 13. the hybrid recipes' PM stage, the recurrent half of the zoo ----
+        t13 = time.perf_counter()
+        pm_launches = pm_stage_phase(rng, dev, tmp)
+        zoo_phase(dev, tmp)
+        log(f"[phase13] {time.perf_counter() - t13:.2f} s")
 
-    # ---- 13. every kernel of the port ----
+    # ---- 14. every kernel of the port ----
     log(json.dumps({"kernels": [{
         "name": "lpc_cepstra",
         "route": "cuda",
@@ -3223,7 +3579,8 @@ def main():
                              "hybrid_decode": decode_launches,
                              "conformer_e2e": conf_launches,
                              "conformer_stream": conf_stream_launches,
-                             "modspec": modspec_launches, "bf16_e2e": bf16_launches},
+                             "modspec": modspec_launches, "bf16_e2e": bf16_launches,
+                             "pm_stage": pm_launches},
         "max_abs_err": main_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -3238,7 +3595,7 @@ def main():
     # names the card and its power limit beside the numbers above
     log(smi)
 
-    # ---- 14. contract line ----
+    # ---- 15. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,27 +1,34 @@
-"""Posterior / log-likelihood dumping CLI, `--arch rnn`.
+"""Posterior / log-likelihood dumping CLI for the recurrent half of the zoo.
 
 Port of speech_recognition_tools_tpu/cli/dump_outputs.py with its flags
 (replacing the reference's extract_posterior.py,
-dump_genclassifier_outputs.py and compute_log_prior.py): load a
-self-describing checkpoint (train_am's, from either package), run an egs
-directory's features through the model on the card, and write posteriors
-or prior-normalised log-likelihoods, log p(c|x) - prior_weight * log p(c),
-to a Kaldi ark/scp pair (the hybrid-decode edge, decode_dnn.sh stage 0).
-It runs on the card unless `--device cpu` is given.
+dump_genclassifier_outputs.py, dump_multimod_outputs.py and
+compute_log_prior.py): load a self-describing checkpoint (train_am's or
+import_torch_ckpt's, from either package), run an egs directory's features
+through the model on the card, and write posteriors, prior-normalised
+log-likelihoods log p(c|x) - prior_weight * log p(c), or with `--layer k`
+the k-th embedding tap from the end, to a Kaldi ark/scp pair (the
+hybrid-decode edge, decode_dnn.sh stage 0). It runs on the card unless
+`--device cpu` is given.
 
     python -m speech_recognition_tools_tpu_torch.cli.dump_outputs exp/am egs/ out/ll \\
         --prior exp/am/prior.pkl --prior_weight 0.8 [--device cpu]
 
-Only checkpoints of `--arch rnn` (the masked GRU RNNClassifier) are
-ported; other archs, `--multi_egs_dirs` and the frozen-encoder archs
-(vae_encoded, curl_encoded) raise NotImplementedError. The rnn arch has no
-embedding taps, so `--layer > 0` raises IndexError, as in the JAX CLI.
+Every arch of cli/train_am.py::PORTED_ARCHS loads; a checkpoint of the
+conv half raises NotImplementedError naming its ROADMAP item. CURL's
+output is the categorical-posterior-weighted mixture of its stream
+classifiers' softmaxes, as log-probabilities floored at 1e-12; a sampling
+arch draws its latent from a CPU torch.Generator seeded 2 for every batch
+where the JAX CLI passes jax.random.key(2) (arch_forward's own default:
+seeded 0, for key(0)), so that the card and the CPU draw the same. The
+port's constructors take their input widths, so a model is shaped from
+its config (and, for multimod, its streams' widths from the checkpoint)
+instead of from a first batch, and the JAX arch_init (a shape-init
+template) has no counterpart.
 """
 
 import argparse
 import pickle
-
-_UNPORTED = "(ROADMAP Queue 1 item 1: the rest of the model zoo and its training CLIs)"
 
 
 def get_parser():
@@ -35,9 +42,19 @@ def get_parser():
     p.add_argument("--layer", type=int, default=0,
                    help="0=logits, k>0 = k-th embedding layer from the end")
     p.add_argument("--batch_size", type=int, default=32)
-    p.add_argument("--multi_egs_dirs", help="(multimod models) not yet ported")
+    p.add_argument("--multi_egs_dirs",
+                   help="(multimod models) comma-separated extra egs dirs, one per additional "
+                        "stream")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p
+
+
+def _stream_sizes(params, comp_num):
+    """multimod's per-stream input widths, read off its checkpoint."""
+    if "params" in params:
+        params = params["params"]
+    return [int(params[f"subnet_{i}"]["GRUStack_0"]["gru_0"]["cell"]["ir"]["kernel"].shape[0])
+            for i in range(comp_num)]
 
 
 def load_model_from_checkpoint(model_dir, device="cuda"):
@@ -47,8 +64,8 @@ def load_model_from_checkpoint(model_dir, device="cuda"):
     mode on `device`. Returns (model, checkpoint path, config)."""
     import argparse as _ap
 
-    from speech_recognition_tools_tpu_torch.cli.train_am import PORTED_ARCHS, build_model
-    from speech_recognition_tools_tpu_torch.io.jax_params import rnn_classifier_from_jax
+    from speech_recognition_tools_tpu_torch.cli.train_am import build_model
+    from speech_recognition_tools_tpu_torch.io.jax_params import model_from_jax
     from speech_recognition_tools_tpu_torch.train.checkpoint import (
         latest_checkpoint,
         load_checkpoint,
@@ -56,43 +73,114 @@ def load_model_from_checkpoint(model_dir, device="cuda"):
 
     path = latest_checkpoint(model_dir) or model_dir
     payload, cfg = load_checkpoint(path)
-    if cfg.get("arch") not in PORTED_ARCHS:
-        raise NotImplementedError(f"dump_outputs for --arch {cfg.get('arch')} is not yet "
-                                  f"ported {_UNPORTED}")
     args = _ap.Namespace(**{k: cfg.get(k) for k in cfg})
-    model = build_model(args, cfg["feature_dim"], cfg.get("num_classes"), device=device)
-    model.load_state_dict(rnn_classifier_from_jax(payload["params"]))
+    kw = {}
+    if cfg.get("arch") == "multimod":
+        kw["stream_sizes"] = _stream_sizes(payload["params"], cfg.get("comp_num", 2))
+    elif cfg.get("arch") in ("vae_encoded", "curl_encoded"):
+        kw["latent_dim"] = load_checkpoint(latest_checkpoint(cfg["base_model"])
+                                           or cfg["base_model"])[1]["bn_dim"]
+    model = build_model(args, cfg["feature_dim"], cfg.get("num_classes"), device, **kw)
+    model.load_state_dict(model_from_jax(model, payload["params"]))
     return model.eval(), path, cfg
+
+
+def load_frozen_encoder(base_model_dir, target_arch, device="cuda"):
+    """(encode_fn, latent width) over a frozen VAE/CURL checkpoint. The
+    reference freezes the generative model by leaving it out of the
+    optimizer; encode_fn runs without gradients, so the same closure serves
+    training and dumping. vae_encoded takes the encoder means; curl_encoded
+    the posterior-weighted mixture latent (compute_latent_features). The
+    latent does not depend on the sample the full model would draw."""
+    import torch
+
+    from speech_recognition_tools_tpu_torch.models.curl import compute_latent_features
+
+    base, _, base_cfg = load_model_from_checkpoint(base_model_dir, device)
+    for p in base.parameters():
+        p.requires_grad_(False)
+
+    @torch.no_grad()
+    def encode_fn(feats, lengths):
+        if hasattr(base, "curl_encoder"):  # (cat, means, logvars)
+            return compute_latent_features(base.curl_encoder(feats, lengths))
+        enc = base.vae_encoder if hasattr(base, "vae_encoder") else base.encoder
+        return enc(feats, lengths)[0]  # the VAE's means
+
+    return encode_fn, base_cfg["bn_dim"]
+
+
+def arch_forward(model, cfg, feats, lengths, generator=None, encode_fn=None):
+    """(logits or posteriors, embedding taps) of any ported arch, as the
+    JAX arch_forward dispatches (dump_genclassifier_outputs.py:100-106,
+    dump_multimod_outputs.py, compute_CURL_classifier_likelihood.py)."""
+    import torch
+
+    from speech_recognition_tools_tpu_torch.cli.train_am import SAMPLING_ARCHS, split_streams
+
+    arch = cfg.get("arch")
+    if arch in SAMPLING_ARCHS and generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if arch == "feedforward":
+        embeds, logits = model(feats)
+        return logits, embeds
+    if arch in ("vae_encoded", "curl_encoded"):
+        return model(encode_fn(feats, lengths), lengths), []
+    if arch == "multimod":
+        return model(split_streams(feats, cfg.get("comp_num", 2)), lengths), []
+    if arch == "curl":
+        class_out, _, latent = model(feats, lengths, generator=generator)
+        post = torch.einsum("kbtc,btk->btc", torch.softmax(class_out, -1), latent[0])
+        return torch.log(post.clamp_min(1e-12)), []
+    out = (model(feats, lengths, generator=generator) if arch in SAMPLING_ARCHS
+           else model(feats, lengths))
+    return (out[0] if isinstance(out, tuple) else out), []
 
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    if args.multi_egs_dirs:
-        raise NotImplementedError(f"--multi_egs_dirs is not yet ported {_UNPORTED}")
 
     import torch
 
     from speech_recognition_tools_tpu_torch.device import resolve_device
     from speech_recognition_tools_tpu_torch.infer.posteriors import genclassifier_outputs
-    from speech_recognition_tools_tpu_torch.io.egs import iter_egs_batches
+    from speech_recognition_tools_tpu_torch.io.egs import (
+        iter_egs_batches,
+        iter_egs_batches_multi,
+    )
     from speech_recognition_tools_tpu_torch.io.kaldi_ark import write_ark_scp
 
     dev = resolve_device(args.device)
-    model, _, _ = load_model_from_checkpoint(args.model_dir, device=dev)
+    model, _, cfg = load_model_from_checkpoint(args.model_dir, device=dev)
+    encode_fn = None
+    if cfg.get("arch") in ("vae_encoded", "curl_encoded"):
+        encode_fn, _ = load_frozen_encoder(cfg["base_model"], cfg["arch"], dev)
+    if args.multi_egs_dirs:
+        batches = iter_egs_batches_multi([args.egs_dir] + args.multi_egs_dirs.split(","),
+                                         args.batch_size)
+    else:
+        batches = iter_egs_batches(args.egs_dir, args.batch_size)
     log_prior = None
     if args.prior:
         with open(args.prior, "rb") as f:
             log_prior = pickle.load(f)
 
-    if args.layer > 0:
-        raise IndexError(f"--layer {args.layer}: the rnn arch has no embedding layers")
     out = {}
     with torch.no_grad():
-        for batch in iter_egs_batches(args.egs_dir, args.batch_size):
-            feats = torch.as_tensor(batch["feats"], device=dev)
+        for batch in batches:
+            feats = batch["feats"]
+            feats = ([torch.as_tensor(s, device=dev) for s in feats] if isinstance(feats, list)
+                     else torch.as_tensor(feats, device=dev))
             lengths = torch.as_tensor(batch["lengths"], device=dev)
-            sel = genclassifier_outputs(model(feats, lengths), log_prior, args.prior_weight,
-                                        add_softmax=args.add_softmax).cpu().numpy()
+            logits, taps = arch_forward(
+                model, cfg, feats, lengths,
+                generator=torch.Generator().manual_seed(2), encode_fn=encode_fn)
+            if args.layer > 0:
+                sel = taps[-args.layer]
+            else:
+                sel = genclassifier_outputs(logits, log_prior, args.prior_weight,
+                                            add_softmax=args.add_softmax)
+            sel = sel.cpu().numpy()
             for i, key in enumerate(batch["keys"]):
                 out[key] = sel[i, : int(batch["lengths"][i])]
     write_ark_scp(out, args.save_file)

@@ -32,9 +32,10 @@ def configure_cuda() -> None:
     torch's default lets cuBLAS reduce them in bfloat16
     (`allow_bf16_reduced_precision_reduction`, switched off here). The
     entry points that run on a card (`fdlp_lags` / `fdlp_spectrogram_batch`,
-    which the featgen CLI runs, `RNNClassifier`, `TransformerASR` and
-    `RNNLM`) call this when their device is CUDA, and say so; it is the one
-    place the port changes these `torch.backends` flags.
+    which the featgen CLI runs, `RNNClassifier`, `TransformerASR`,
+    `RNNLM` and `cli/train_am.py::build_model`) call this when their
+    device is CUDA, and say so; it is the one place the port changes these
+    `torch.backends` flags.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

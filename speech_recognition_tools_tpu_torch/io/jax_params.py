@@ -25,7 +25,19 @@ such as an optimizer's moments -> the flax tree with its outer
 {"params": ...}): every mapping is a transpose, reshape or split, so the
 round trip is bit-exact.
 `adam_state_to_jax` / `adam_state_from_jax` carry train/optim.py's Adam
-state in the layout flax's `to_state_dict` gives the optax state.
+state in the layout flax's `to_state_dict` gives the optax state, and
+`optim_state_to_jax` / `optim_state_from_jax` that of any of its
+optimizers.
+
+`zoo_from_jax(model, params)` and `zoo_to_jax(model, sd)` are the pair for
+every other model of the zoo (models/recurrent.py, apc.py, vae.py,
+curl.py): those modules carry flax's names, so the layout is read off the
+port module itself. A state_dict name maps to its flax path segment by
+segment, a GRU stack's `layers.{i}` becoming `gru_{i}`; a MaskedGRULayer is
+its flax GRUCell `cell` (as above), a Linear a Dense ([in, out] kernel), a
+MultiHeadAttention flax's MultiHeadDotProductAttention (query/key/value
+kernels (D, heads, hd), out kernel (heads, hd, D)), a LayerNorm its
+scale and bias. Both directions are exact and raise on a leaf left over.
 """
 
 import numpy as np
@@ -347,6 +359,87 @@ def rnnlm_to_jax(sd: dict) -> dict:
     }}
 
 
+# ------------------------------------------------------------ the model zoo
+
+
+def _flax_path(name: str) -> tuple:
+    segs, out, i = name.split(".") if name else [], [], 0
+    while i < len(segs):
+        if segs[i] == "layers" and i + 1 < len(segs) and segs[i + 1].isdigit():
+            out.append(f"gru_{segs[i + 1]}")
+            i += 2
+        else:
+            out.append(segs[i])
+            i += 1
+    return tuple(out)
+
+
+def _zoo_layout(model) -> tuple:
+    """([(flax cell path, state_dict prefix)] of the GRU layers,
+    [(flax leaf path, state_dict name, kind, heads)] of every other leaf)."""
+    from torch import nn
+
+    from speech_recognition_tools_tpu_torch.models.recurrent import MaskedGRULayer
+    from speech_recognition_tools_tpu_torch.models.transformer_asr import (
+        LayerNorm,
+        MultiHeadAttention,
+    )
+
+    grus, rows, inside_mha = [], [], set()
+    for name, m in model.named_modules():
+        path = _flax_path(name)
+        if isinstance(m, MaskedGRULayer):
+            grus.append((path + ("cell",), name))
+        elif isinstance(m, MultiHeadAttention):
+            h = m.heads
+            for part in ("query", "key", "value"):
+                rows += [(path + (part, "kernel"), f"{name}.{part}.weight", "heads_in", h),
+                         (path + (part, "bias"), f"{name}.{part}.bias", "heads_bias", h)]
+            rows += [(path + ("out", "kernel"), f"{name}.out.weight", "heads_out", h),
+                     (path + ("out", "bias"), f"{name}.out.bias", "same", h)]
+            inside_mha.update(f"{name}.{p}" for p in ("query", "key", "value", "out"))
+        elif isinstance(m, nn.Linear) and name not in inside_mha:
+            rows += [(path + ("kernel",), f"{name}.weight", "dense", None),
+                     (path + ("bias",), f"{name}.bias", "same", None)]
+        elif isinstance(m, LayerNorm):
+            rows += [(path + ("scale",), f"{name}.weight", "same", None),
+                     (path + ("bias",), f"{name}.bias", "same", None)]
+    return grus, rows
+
+
+def zoo_from_jax(model, params: dict) -> dict:
+    """The flax tree of the JAX model that `model` ports (with or without
+    the outer {"params": ...}) -> `model`'s state_dict."""
+    grus, rows = _zoo_layout(model)
+    leaves = _Leaves(params)
+    sd = {}
+    for path, prefix in grus:
+        cell = _nest(leaves.subtree(*path))
+        for k, v in gru_cell_from_jax(cell).items():
+            sd[f"{prefix}.{k}"] = v
+    for path, name, kind, h in rows:
+        sd[name] = _t(_KINDS[kind][0](leaves.take(*path), h))
+    leaves.done()
+    missing = set(model.state_dict()) - set(sd)
+    if missing:
+        raise ValueError(f"port leaves without a flax leaf: {sorted(missing)}")
+    return sd
+
+
+def zoo_to_jax(model, sd: dict) -> dict:
+    """`model`'s state_dict, or any dict of tensors keyed like it (an
+    optimizer's moments) -> the flax tree {"params": ...} of numpy arrays."""
+    grus, rows = _zoo_layout(model)
+    flat = {}
+    for path, prefix in grus:
+        for gate, leaf in gru_cell_to_jax(sd, prefix).items():
+            for k, v in leaf.items():
+                flat[path + (gate, k)] = v
+    for path, name, kind, h in rows:
+        flat[path] = np.array(_KINDS[kind][1](_np(sd[name]), h))
+    return {"params": _nest(flat)}
+
+
 # ------------------------------------------------------------ optimizer state
 
 
@@ -393,3 +486,62 @@ def adam_state_from_jax(tree: dict, params_from_jax, *, clip: bool) -> dict:
     if fixed:
         state["learning_rate"] = float(np.float32(tree["hyperparams"]["learning_rate"]))
     return state
+
+
+# the optax chain of each of train/optim.py::ClipRule's rules: (the links
+# before the rule's state, the links after it)
+_RULE_CHAIN = {"adadelta": (1, 1), "sgd": (1, 0), "adagrad": (0, 1), "rmsprop": (0, 2)}
+
+
+def optim_state_to_jax(state: dict, params_to_jax, *, name: str, clip: bool) -> dict:
+    """The state of make_optimizer(name)'s optimizer (train_am's, with the
+    injected float32 rate) -> the tree flax's `to_state_dict` makes of the
+    JAX trainer's optax state, e.g. for rmsprop with clipping
+    {"count", "hyperparams": {"learning_rate"}, "hyperparams_states": {},
+    "inner_state": {"0": {}, "1": {"0": {"nu": ...}, "1": {}, "2": {}}}}."""
+    if name == "adam":
+        return adam_state_to_jax(state, params_to_jax, clip=clip)
+    from speech_recognition_tools_tpu_torch.train.optim import RULES
+
+    before, after = _RULE_CHAIN[name]
+    links = [{}] * before + [{s: params_to_jax(state[s]) for s in RULES[name]}] + [{}] * after
+    chain = {str(i): link for i, link in enumerate(links)}
+    if clip:
+        chain = {"0": {}, "1": chain}
+    return {"count": np.asarray(state["count"], np.int32),
+            "hyperparams": {"learning_rate": np.asarray(state["learning_rate"], np.float32)},
+            "hyperparams_states": {}, "inner_state": chain}
+
+
+def optim_state_from_jax(tree: dict, params_from_jax, *, name: str, clip: bool) -> dict:
+    """Inverse of optim_state_to_jax: slots as CPU tensors keyed like the
+    parameters."""
+    if name == "adam":
+        return adam_state_from_jax(tree, params_from_jax, clip=clip)
+    from speech_recognition_tools_tpu_torch.train.optim import RULES
+
+    chain = tree["inner_state"]["1"] if clip else tree["inner_state"]
+    link = chain[str(_RULE_CHAIN[name][0])]
+    state = {s: params_from_jax(link[s]) for s in RULES[name]}
+    return dict(state, count=int(tree["count"]),
+                learning_rate=float(np.float32(tree["hyperparams"]["learning_rate"])))
+
+
+def model_to_jax(model, sd: dict) -> dict:
+    """Any train_am model's state_dict (or a dict keyed like it) -> its
+    flax tree: rnn_classifier_to_jax for the RNNClassifier, zoo_to_jax for
+    the rest."""
+    from speech_recognition_tools_tpu_torch.models.recurrent import RNNClassifier
+
+    if isinstance(model, RNNClassifier):
+        return rnn_classifier_to_jax(sd)
+    return zoo_to_jax(model, sd)
+
+
+def model_from_jax(model, params: dict) -> dict:
+    """Inverse of model_to_jax."""
+    from speech_recognition_tools_tpu_torch.models.recurrent import RNNClassifier
+
+    if isinstance(model, RNNClassifier):
+        return rnn_classifier_from_jax(params)
+    return zoo_from_jax(model, params)

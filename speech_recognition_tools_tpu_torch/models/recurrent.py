@@ -1,9 +1,13 @@
-"""Recurrent acoustic model: masked GRU stack + frame classifier.
+"""Recurrent acoustic models: masked GRU stacks, feedforward baselines and
+the recurrent autoencoders.
 
-Port of speech_recognition_tools_tpu/models/recurrent.py::length_mask,
-MaskedGRULayer, GRUStack and RNNClassifier (reference nnetRNN,
-nnet_models.py:54), and of models/cnn.py::MaskedLSTMLayer (the LSTM RNNLM's
-layer; flax's OptimizedLSTMCell). Each layer runs over the padded batch with its carry
+Port of speech_recognition_tools_tpu/models/recurrent.py, all of it
+(reference nnet_models.py: nnetFeedforward :9, nnetLinearWithConv :34,
+nnetRNN :54, rnnSubnet :92, nnetRNNMultimod :121, encoderRNN :164,
+decoderRNN :203, nnetAEClassifierMultitask :229, nnetAEClassifierMultitaskAEAR
+:243, and the PM autoencoder AutoencoderRNN), and of
+models/cnn.py::MaskedLSTMLayer (the LSTM RNNLM's layer; flax's
+OptimizedLSTMCell). Each layer runs over the padded batch with its carry
 frozen past each utterance's length and its padded outputs zeroed, which
 matches packed-sequence semantics on valid frames.
 
@@ -27,6 +31,12 @@ kernels lecun_normal, each recurrent gate kernel orthogonal, the biases
 zero, the output layer a flax Dense; `reset_parameters(generator)` takes
 an explicit torch.Generator. Dropout acts between GRU layers only and in
 training mode only, as in the JAX GRUStack.
+
+The zoo's modules are named as flax names them, so that the state_dict of
+each maps one to one onto the flax tree (io/jax_params.py::zoo_from_jax):
+an unnamed GRUStack inside a module is its `GRUStack_0`, numbered Dense
+layers are `dense_{i}`, streams `subnet_{i}`. Flax infers input widths at
+init; here each constructor takes its input width first.
 """
 
 import torch
@@ -210,6 +220,25 @@ class GRUStack(nn.Module):
         return torch.stack(new)
 
 
+def flax_reset_(module: nn.Module, generator: torch.Generator | None = None) -> None:
+    """Draw every Linear and recurrent layer of `module` as flax's `init`
+    draws it, from `generator` (a CPU torch.Generator), in module order.
+    LayerNorms keep their fresh ones and zeros."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            flax_init.dense_(m, generator)
+        elif isinstance(m, (MaskedGRULayer, MaskedLSTMLayer)):
+            m.reset_parameters(generator)
+
+
+def dense(in_features: int, out_features: int, *, device=None,
+          dtype=torch.float32) -> nn.Linear:
+    """A Linear drawn as flax.linen.Dense draws (lecun_normal, zero bias)."""
+    lin = nn.Linear(in_features, out_features, device=device, dtype=dtype)
+    flax_init.dense_(lin)
+    return lin
+
+
 class RNNClassifier(nn.Module):
     """GRU stack + per-frame linear output (reference nnetRNN :54).
 
@@ -240,3 +269,169 @@ class RNNClassifier(nn.Module):
     def forward(self, inputs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """(B, T, D) features, (B,) lengths -> (B, T, out_size) logits."""
         return self.regression(self.gru(inputs, lengths))
+
+
+class FeedforwardClassifier(nn.Module):
+    """MLP over frames: (the pre-ReLU output of every hidden layer, the
+    logits) (reference nnetFeedforward :24-31); the taps feed `--layer`."""
+
+    def __init__(self, input_size: int, num_layers: int, hidden_size: int, out_size: int,
+                 *, device=None):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"dense_{i}", dense(input_size if i == 0 else hidden_size,
+                                                hidden_size, device=device))
+        self.out = dense(hidden_size if num_layers else input_size, out_size, device=device)
+
+    def forward(self, inputs):
+        embeds, x = [], inputs
+        for i in range(self.num_layers):
+            x = getattr(self, f"dense_{i}")(x)
+            embeds.append(x)
+            x = torch.relu(x)
+        return embeds, self.out(x)
+
+
+class LinearConvStack(nn.Module):
+    """ReLU Dense stack over sequences (reference nnetLinearWithConv :34,
+    whose 1x1 Conv1d is a Dense over the feature axis)."""
+
+    def __init__(self, input_size: int, num_layers: int, hidden_size: int, out_size: int,
+                 *, device=None):
+        super().__init__()
+        self.num_hidden = max(num_layers - 1, 0)
+        for i in range(self.num_hidden):
+            self.add_module(f"dense_{i}", dense(input_size if i == 0 else hidden_size,
+                                                hidden_size, device=device))
+        self.out = dense(hidden_size if self.num_hidden else input_size, out_size,
+                         device=device)
+
+    def forward(self, inputs, lengths=None):
+        x = inputs
+        for i in range(self.num_hidden):
+            x = torch.relu(getattr(self, f"dense_{i}")(x))
+        return self.out(x)
+
+
+class RNNSubnet(nn.Module):
+    """One stream's GRU subnet (reference rnnSubnet :92)."""
+
+    def __init__(self, input_size: int, num_layers: int, hidden_size: int, *, device=None):
+        super().__init__()
+        self.GRUStack_0 = GRUStack(input_size, num_layers, hidden_size, device=device)
+
+    def forward(self, inputs, lengths):
+        return self.GRUStack_0(inputs, lengths)
+
+
+class MultistreamRNN(nn.Module):
+    """Per-stream GRU subnets, concatenated, a fused GRU stack of
+    num_streams * hidden_size_subband units, a Dense output (reference
+    nnetRNNMultimod :121). `stream_sizes` are the streams' input widths."""
+
+    def __init__(self, stream_sizes, num_layers_subband: int, hidden_size_subband: int,
+                 num_layers: int, out_size: int, *, device=None):
+        super().__init__()
+        self.num_streams = len(stream_sizes)
+        for i, d in enumerate(stream_sizes):
+            self.add_module(f"subnet_{i}", RNNSubnet(d, num_layers_subband,
+                                                     hidden_size_subband, device=device))
+        width = self.num_streams * hidden_size_subband
+        self.fusion = GRUStack(width, num_layers, width, device=device)
+        self.regression = dense(width, out_size, device=device)
+
+    def forward(self, stream_inputs, lengths):
+        x = torch.cat([getattr(self, f"subnet_{i}")(s, lengths)
+                       for i, s in enumerate(stream_inputs)], dim=-1)
+        return self.regression(self.fusion(x, lengths))
+
+
+class EncoderRNN(nn.Module):
+    """GRU stack + ReLU bottleneck (reference encoderRNN :164)."""
+
+    def __init__(self, input_size: int, num_layers: int, hidden_size: int, bn_size: int,
+                 dropout: float = 0.0, *, device=None):
+        super().__init__()
+        self.GRUStack_0 = GRUStack(input_size, num_layers, hidden_size, dropout, device=device)
+        self.bottleneck = dense(hidden_size, bn_size, device=device)
+
+    def forward(self, inputs, lengths):
+        return torch.relu(self.bottleneck(self.GRUStack_0(inputs, lengths)))
+
+
+class DecoderRNN(nn.Module):
+    """GRU stack + Dense regression (reference decoderRNN :203): a
+    classifier head or an autoencoder's decoder."""
+
+    def __init__(self, input_size: int, num_layers: int, hidden_size: int, out_size: int,
+                 *, device=None):
+        super().__init__()
+        self.GRUStack_0 = GRUStack(input_size, num_layers, hidden_size, device=device)
+        self.regression = dense(hidden_size, out_size, device=device)
+
+    def forward(self, inputs, lengths):
+        return self.regression(self.GRUStack_0(inputs, lengths))
+
+
+class AEClassifierMultitask(nn.Module):
+    """A shared encoder -> a classifier and an AE decoder (reference
+    nnetAEClassifierMultitask :229). `recon_size` (the flax `input_size`)
+    is the AE's output width, by default the input's."""
+
+    def __init__(self, input_size: int, out_size: int, num_layers_enc: int,
+                 num_layers_class: int, num_layers_ae: int, hidden_size: int, bn_size: int,
+                 dropout: float = 0.0, recon_size: int | None = None, *, device=None):
+        super().__init__()
+        recon = recon_size or input_size
+        self.encoder = EncoderRNN(input_size, num_layers_enc, hidden_size, bn_size, dropout,
+                                  device=device)
+        self.classifier = DecoderRNN(bn_size, num_layers_class, hidden_size, out_size,
+                                     device=device)
+        self.ae = DecoderRNN(bn_size, num_layers_ae, hidden_size, recon, device=device)
+
+    def forward(self, inputs, lengths):
+        z = self.encoder(inputs, lengths)
+        return self.classifier(z, lengths), self.ae(z, lengths)
+
+
+class AEClassifierMultitaskAEAR(AEClassifierMultitask):
+    """The multitask AE plus an autoregressive decoder `ar` that predicts
+    the input `time_shift` frames ahead from the encoding of the input cut
+    by `time_shift` frames (reference nnetAEClassifierMultitaskAEAR
+    :243-259)."""
+
+    def __init__(self, input_size: int, out_size: int, num_layers_enc: int,
+                 num_layers_class: int, num_layers_ae: int, hidden_size: int, bn_size: int,
+                 time_shift: int, recon_size: int | None = None, *, device=None):
+        super().__init__(input_size, out_size, num_layers_enc, num_layers_class,
+                         num_layers_ae, hidden_size, bn_size, recon_size=recon_size,
+                         device=device)
+        self.time_shift = time_shift
+        self.ar = DecoderRNN(bn_size, num_layers_ae, hidden_size, recon_size or input_size,
+                             device=device)
+
+    def forward(self, inputs, lengths):
+        logits, recon = super().forward(inputs, lengths)
+        ts = self.time_shift
+        z_ar = self.encoder(inputs[:, :-ts], lengths - ts)
+        return logits, recon, self.ar(z_ar, lengths - ts)
+
+
+class AutoencoderRNN(nn.Module):
+    """The performance-monitoring (PM) autoencoder: GRU encoder -> linear
+    bottleneck -> GRU decoder -> linear reconstruction. Returns
+    (reconstruction, bottleneck)."""
+
+    def __init__(self, input_size: int, num_layers_enc: int, num_layers_dec: int,
+                 hidden_size: int, bn_size: int, out_size: int | None = None,
+                 dropout: float = 0.0, *, device=None):
+        super().__init__()
+        self.encoder = GRUStack(input_size, num_layers_enc, hidden_size, dropout, device=device)
+        self.bottleneck = dense(hidden_size, bn_size, device=device)
+        self.decoder = GRUStack(bn_size, num_layers_dec, hidden_size, device=device)
+        self.reconstruction = dense(hidden_size, out_size or input_size, device=device)
+
+    def forward(self, inputs, lengths):
+        z = self.bottleneck(self.encoder(inputs, lengths))
+        return self.reconstruction(self.decoder(z, lengths)), z

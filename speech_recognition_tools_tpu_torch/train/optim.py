@@ -24,8 +24,24 @@ that the JAX trainer's `optax.inject_hyperparams` holds and its LR-revert
 rule changes; with `inject=False` the rate as given, as plain
 optax.adam(lr) scales by it (train_lm). io/jax_params.py::adam_state_to_jax
 writes the state in optax's layout.
-Only Adam is ported; the JAX package's other four names raise
-NotImplementedError.
+
+The JAX package's other four names give `ClipRule`: the same clipping,
+then one of optax's rules at its defaults, then p + (-lr) * update with
+the injected float32 rate (train_am's form):
+
+  - adadelta (rho 0.9, eps 1e-6): e_g = (1 - rho) g^2 + rho e_g, the
+    update sqrt(e_x + eps) / sqrt(e_g + eps) * g, then
+    e_x = (1 - rho) update^2 + rho e_x;
+  - sgd (no momentum): the update is g;
+  - adagrad (initial accumulator 0.1, eps 1e-7; torch.optim.Adagrad
+    starts at 0 with eps 1e-10 outside the root): s = s + g^2, the update
+    g / sqrt(s + eps) where s > 0, else 0;
+  - rmsprop (decay 0.9, eps 1e-8 inside the root, not centered;
+    torch.optim.RMSprop decays by 0.99 and adds eps outside the root):
+    nu = (1 - decay) g^2 + decay nu, the update g / sqrt(nu + eps).
+
+io/jax_params.py::optim_state_to_jax writes any of these states in optax's
+layout.
 """
 
 from collections.abc import Callable
@@ -33,13 +49,26 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-NOT_PORTED = ("adadelta", "sgd", "adagrad", "rmsprop")
 B1, EPS = 0.9, 1e-8  # optax.adam's defaults, which every caller takes
 
 
 def f32(x: float) -> float:
     """x rounded to float32, as a Python float (exact in double)."""
     return float(np.float32(x))
+
+
+def global_norm(grads: list) -> torch.Tensor:
+    norms = torch.stack(torch._foreach_norm(grads))
+    return (norms * norms).sum().sqrt()
+
+
+def clip_by_global_norm(g: list, threshold: float | None):
+    """(the gradients as optax.clip_by_global_norm(threshold) leaves them,
+    their global norm before clipping as a float); None clips nothing."""
+    gnorm = global_norm(g).item()
+    if threshold is not None and not gnorm < threshold:
+        g = torch._foreach_mul(torch._foreach_div(g, gnorm), threshold)
+    return g, gnorm
 
 
 class ClipAdam:
@@ -76,10 +105,7 @@ class ClipAdam:
             state["learning_rate"] = f32(lr) if self.inject else lr
         return state
 
-    @staticmethod
-    def global_norm(grads: list) -> torch.Tensor:
-        norms = torch.stack(torch._foreach_norm(grads))
-        return (norms * norms).sum().sqrt()
+    global_norm = staticmethod(global_norm)
 
     @torch.no_grad()
     def apply(self, params: dict, grads: dict, state: dict):
@@ -88,10 +114,7 @@ class ClipAdam:
         with its count advanced, the global norm of the gradients before
         clipping, as a float)."""
         keys = list(params)
-        g = [grads[k] for k in keys]
-        gnorm = self.global_norm(g).item()
-        if self.clip_threshold is not None and not gnorm < self.clip_threshold:
-            g = torch._foreach_mul(torch._foreach_div(g, gnorm), self.clip_threshold)
+        g, gnorm = clip_by_global_norm([grads[k] for k in keys], self.clip_threshold)
         b1, b2 = B1, self.b2
         mu = [state["mu"][k] for k in keys]
         nu = [state["nu"][k] for k in keys]
@@ -116,11 +139,73 @@ class ClipAdam:
         return dict(state, count=count), gnorm
 
 
+# each rule's state slots, in optax's names
+RULES = {"adadelta": ("e_g", "e_x"), "sgd": (), "adagrad": ("sum_of_squares",),
+         "rmsprop": ("nu",)}
+ADADELTA_RHO, ADADELTA_EPS = 0.9, 1e-6
+ADAGRAD_INIT, ADAGRAD_EPS = 0.1, 1e-7
+RMSPROP_DECAY, RMSPROP_EPS = 0.9, 1e-8
+
+
+class ClipRule:
+    """Global-norm clipping followed by optax's adadelta, sgd, adagrad or
+    rmsprop at its defaults, over a dict of parameters, with a fixed rate
+    held as inject_hyperparams holds it (in float32). The state is a dict:
+    "count", "learning_rate" and a dict of tensors per slot of RULES."""
+
+    def __init__(self, name: str, learning_rate: float, clip_threshold: float | None = 1.0):
+        if name not in RULES:
+            raise ValueError(f"Unknown optimizer {name}")
+        self.name = name
+        self.learning_rate = learning_rate
+        self.clip_threshold = clip_threshold
+
+    def init(self, params: dict) -> dict:
+        fill = ADAGRAD_INIT if self.name == "adagrad" else 0.0
+        with torch.no_grad():
+            state = {slot: {k: torch.full_like(p, fill) for k, p in params.items()}
+                     for slot in RULES[self.name]}
+        return dict(state, count=0, learning_rate=f32(float(self.learning_rate)))
+
+    @torch.no_grad()
+    def apply(self, params: dict, grads: dict, state: dict):
+        """One update in place, as ClipAdam.apply."""
+        keys = list(params)
+        g, gnorm = clip_by_global_norm([grads[k] for k in keys], self.clip_threshold)
+        slots = {s: [state[s][k] for k in keys] for s in RULES[self.name]}
+        if self.name == "adadelta":
+            rho, eps = ADADELTA_RHO, ADADELTA_EPS
+            e_g, e_x = slots["e_g"], slots["e_x"]
+            torch._foreach_mul_(e_g, rho)
+            torch._foreach_add_(e_g, torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - rho))
+            num = torch._foreach_sqrt(torch._foreach_add(e_x, eps))
+            den = torch._foreach_sqrt(torch._foreach_add(e_g, eps))
+            upd = torch._foreach_mul(torch._foreach_div(num, den), g)
+            torch._foreach_mul_(e_x, rho)
+            torch._foreach_add_(e_x, torch._foreach_mul(torch._foreach_mul(upd, upd), 1.0 - rho))
+        elif self.name == "sgd":
+            upd = list(g)
+        elif self.name == "adagrad":
+            s = slots["sum_of_squares"]
+            torch._foreach_add_(s, torch._foreach_mul(g, g))
+            inv = [torch.where(t > 0, torch.rsqrt(t + ADAGRAD_EPS), torch.zeros_like(t))
+                   for t in s]
+            upd = torch._foreach_mul(inv, g)
+        else:
+            nu = slots["nu"]
+            torch._foreach_mul_(nu, RMSPROP_DECAY)
+            torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g),
+                                                      1.0 - RMSPROP_DECAY))
+            upd = torch._foreach_mul(torch._foreach_rsqrt(torch._foreach_add(nu, RMSPROP_EPS)),
+                                     g)
+        torch._foreach_mul_(upd, -state["learning_rate"])
+        torch._foreach_add_([params[k] for k in keys], upd)
+        return dict(state, count=state["count"] + 1), gnorm
+
+
 def make_optimizer(name: str, learning_rate, clip_threshold: float | None = 1.0):
+    """As the JAX make_optimizer: a threshold of 0 or None chains no clip."""
     name = name.lower()
     if name == "adam":
-        # as the JAX make_optimizer, a threshold of 0 or None chains no clip
         return ClipAdam(learning_rate, clip_threshold or None)
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"optimizer {name!r} is not yet ported (adam only)")
-    raise ValueError(f"Unknown optimizer {name}")
+    return ClipRule(name, learning_rate, clip_threshold or None)

@@ -252,7 +252,7 @@ def test_dump_outputs_refuses_what_is_not_ported(am, tmp_path):
     with pytest.raises(IndexError):
         dump_outputs.main([am["store"], am["egs"], str(tmp_path / "o"), "--layer", "1",
                            "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 1"):
+    with pytest.raises(FileNotFoundError):  # --multi_egs_dirs is ported: "x" is no egs dir
         dump_outputs.main([am["store"], am["egs"], str(tmp_path / "o"),
                            "--multi_egs_dirs", "x", "--device", "cpu"])
     other = str(tmp_path / "cnn")

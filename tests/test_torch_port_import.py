@@ -435,11 +435,12 @@ def test_egs_import_matches_jax(tmp_path):
     assert [len(f) for _, f, _ in utts] == [16, 9, 12]
 
 
-@pytest.mark.parametrize("family", ["cnn", "vae_encoded"])
+@pytest.mark.parametrize("family", ["cnn", "cldnn"])
 def test_unloadable_family_imports_then_raises_in_the_port(family, tmp_path):
-    """A family the port has no model for yet is imported all the same (the
-    JAX package's files); the port's dump_outputs then raises
-    NotImplementedError naming ROADMAP Queue 1 item 1 (the model zoo)."""
+    """A family the port has no model for yet (the conv half) is imported
+    all the same (the JAX package's files); the port's dump_outputs then
+    raises NotImplementedError naming ROADMAP Queue 1 item 1 (the model
+    zoo). The recurrent families load: tests/test_torch_port_train_am_archs.py."""
     sd, hyper, _ = _build(family)
     src = str(tmp_path / "ref.model")
     torch.save({"model_state_dict": sd, **hyper}, src)

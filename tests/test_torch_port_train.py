@@ -238,9 +238,11 @@ def test_schedule_first_three_rates_lag_one_step():
 
 
 def test_other_optimizers_raise():
+    """The JAX package's other four optimizers are ported
+    (tests/test_torch_port_optim.py holds them to optax); a name neither
+    package knows raises ValueError."""
     for name in ("adadelta", "sgd", "adagrad", "rmsprop"):
-        with pytest.raises(NotImplementedError):
-            make_optimizer(name, 1e-3)
+        assert make_optimizer(name, 1e-3).name == name
     with pytest.raises(ValueError):
         make_optimizer("lamb", 1e-3)
 
@@ -526,7 +528,6 @@ def test_train_am_main_on_a_tiny_egs_dir(tmp_path):
     st3 = train_am.main(argv + ["--epochs", "3"])
     assert st3.epoch == 3 and len(st3.history) == 1
     assert os.path.isdir(os.path.join(store, "epoch_3"))
-    for bad in (["--arch", "cnn"], ["--data_parallel"], ["--expert_parallel", "2"],
-                ["--optimizer", "sgd"]):
+    for bad in (["--arch", "cnn"], ["--data_parallel"], ["--expert_parallel", "2"]):
         with pytest.raises(NotImplementedError):
             train_am.main(argv + ["--epochs", "4"] + bad)
