@@ -194,9 +194,28 @@ exits non-zero. Phases:
      first-step loss card against CPU with the same noise (ZOO_LOSS_REL)
      and dump_outputs card against CPU (ZOO_OUT_REL); tandem_feats
      --get_pca on phase 6's AM;
-  14. one JSON line describing every kernel of the port (`launches` is the
+  14. (a) the conv half of the zoo at train_am's defaults (ZOO_TRAIN)
+     over phase 13's doubled egs: cnn, cldnn, vae_cnn, vae_cnn_pool,
+     rs_vae, modnet, modnet_sigmoid, each one epoch of 2 batches of 32: ms
+     a step; on the initial weights, the first-step loss card against CPU
+     (ZOO_LOSS_REL; float64 for the conv VAEs) and dump_outputs card
+     against CPU (ZOO_OUT_REL); a reference nnetCLDNN imported and dumped
+     card against CPU. (b) the demo recipe's stage 5: FDLP (K1, counted,
+     then held to its plain version) of ADAPT_UTTS held-out utterances ->
+     adapt_am.main of phase 6's AM against phase 13's PM (one epoch at
+     ADAPT_BATCH, dev FER on phase 6's egs before and after) -> the adapted
+     checkpoint reloaded -> pm_score_cli pm of it; the first-step PM loss
+     card against CPU (ADAPT_LOSS_REL). (c) lifelong_decode.main over
+     (b)'s egs with phase 6's AM and a second seeded classifier and two
+     seeded GRU VAEs (over the features, or the classifiers' outputs for
+     postpm), every fusion: utterances a second, fused arks card against
+     CPU (LIFELONG_REL). (d) recog_e2e.main --api cl over phase 5's and
+     phase 7's models (CL_PM_SCORES, beam 10, CL_MAX_LEN) on phase 7's egs:
+     ms a step, hypotheses card against CPU, and a bf16 run whose best
+     hypotheses' fused scores are finite;
+  15. one JSON line describing every kernel of the port (`launches` is the
      hybrid main path's count, `launches_by_path` each path's);
-  15. the run's time, the card's name and power limit again, then the last
+  16. the run's time, the card's name and power limit again, then the last
      line: {"ok": true, "device": {...}}.
 """
 
@@ -401,6 +420,35 @@ ZOO_TRAIN = dict(num_layers=3, num_layers_dec=1, hidden_dim=512, bn_dim=64, comp
 # logits card vs CPU to 1e-4)
 ZOO_CPU_UTTS = 4
 ZOO_LOSS_REL, ZOO_OUT_REL = 1e-5, 1e-4
+
+# phase 14 (a): the conv half of the zoo at train_am's defaults (ZOO_TRAIN)
+# over phase 13's doubled timit_hybrid egs; modnet_sigmoid's training goes
+# NaN on padded batches in both packages, and the conv VAEs may diverge
+# (ROADMAP Queue 3): their histories are logged (modnet_sigmoid's held to
+# NaN), their first-step losses and dumps held to the CPU's
+CONV_ARCHS = ["cnn", "cldnn", "vae_cnn", "vae_cnn_pool", "rs_vae", "modnet", "modnet_sigmoid"]
+# phase 14 (a): the reference nnetCLDNN imported (timit_hybrid input, 64
+# conv channels, 3 x 512 LSTM, 512 -> 3,376 DNN)
+CLDNN_IMPORT = dict(channels=64, hidden=512, lstm_layers=3)
+# phase 14 (b): adapt_am of phase 6's AM against phase 13's PM on ADAPT_UTTS
+# held-out timit_hybrid utterances of 1-2.5 s, one epoch at batch 16; the
+# first-step PM loss card against CPU within ADAPT_LOSS_REL
+ADAPT_UTTS, ADAPT_BATCH, ADAPT_LOSS_REL = 32, 16, 1e-5
+# K1 against its plain version on the adaptation set's lags: allclose
+# within MAIN_PATH_TOL, and per coefficient within MODSPEC_K1_REL, the
+# limit for lags with ill-conditioned rows. This batch exceeds
+# MAIN_PATH_REL (1.7e-2 on the H100): there both float32 versions sit as
+# far from the float64 plain version, which the phase logs beside it
+ADAPT_K1_REL = MODSPEC_K1_REL
+# phase 14 (c): lifelong_decode's fusions over (b)'s egs, fused arks card vs
+# CPU on ZOO_CPU_UTTS utterances within LIFELONG_REL of their scale
+LIFELONG_RUNS = {"powerset": ["dp"], "incremental": ["mm"], "perframe": ["dp"],
+                 "autoT": ["lowent"], "postpm": ["dp", "--pm_on", "posteriors"]}
+LIFELONG_REL = 1e-4
+# phase 14 (d): recog_e2e --api cl over phase 5's and phase 7's models (task
+# weights exp(300 pm) / sum = 0.953, 0.047), beam 10; searches on random
+# weights never end on eos, so CL_MAX_LEN sets the phase's time
+CL_PM_SCORES, CL_MAX_LEN, CL_CPU_UTTS = "0.02,0.01", 12, 2
 
 # (order, coeff_num) of the front-ends in recipes/configs: wsj/chime4/
 # conformer e2e, timit_hybrid, reverb
@@ -3282,6 +3330,407 @@ def zoo_phase(dev, tmp):
         f"phase 13 (b) took {time.perf_counter() - t_phase:.1f} s")
 
 
+class _CldnnRef(torch.nn.Module):
+    """The reference nnetCLDNN's parameter layout (nnet_models_cnn.py:32):
+    `cnn_layers.{i}` Conv2d, `dim_reduce` a 1x1 Conv1d over the (C, H)
+    flattened map, `lstm_layers.{i}` one-layer LSTMs, `dnn_layers.{i}`
+    1x1 Conv1d; built here so that import_torch_ckpt has a checkpoint to
+    import."""
+
+    def __init__(self, idim, channels, hidden, lstm_layers, classes):
+        super().__init__()
+        self.cnn_layers = torch.nn.ModuleList([torch.nn.Conv2d(1, channels, 3, padding=1)])
+        self.dim_reduce = torch.nn.Conv1d(idim * channels, hidden, 1)
+        self.lstm_layers = torch.nn.ModuleList(
+            torch.nn.LSTM(hidden, hidden, batch_first=True) for _ in range(lstm_layers))
+        self.dnn_layers = torch.nn.ModuleList([torch.nn.Conv1d(hidden, hidden, 1),
+                                               torch.nn.Conv1d(hidden, classes, 1)])
+
+
+def conv_zoo_phase(dev, tmp, seed):
+    """Phase 14 (a): the conv half of the zoo through train_am.main on the
+    card at its defaults (ZOO_TRAIN: cnn and cldnn with hidden // 8 = 64
+    channels, the conv VAEs with 32 / 64, 3 x 3 kernels, the modnets on
+    21-frame patches with 10 candidate frequencies and 4 heads) over phase
+    13's doubled timit_hybrid egs (one epoch of 2 batches of 32). Each: ms a
+    step; on the weights the training starts from, the first-step loss
+    card vs CPU with the same noise and dump_outputs card vs CPU on the
+    ZOO_CPU_UTTS shortest utterances. Then a reference nnetCLDNN .model
+    dict, imported by import_torch_ckpt, dumped card vs CPU."""
+    import os
+
+    from speech_recognition_tools_tpu_torch.cli import dump_outputs, import_torch_ckpt, train_am
+    from speech_recognition_tools_tpu_torch.io.egs import iter_egs_batches, load_egs
+
+    t_phase = time.perf_counter()
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    base = _argv(ZOO_TRAIN)
+    small = next(iter_egs_batches(j("zoo_small"), ZOO_CPU_UTTS))
+    rows = []
+    for arch in CONV_ARCHS:
+        store = j(f"conv_{arch}")
+        argv = [j("zoo_egs"), store, *base, "--arch", arch]
+        train_am.main([*argv[:1], store + "_init", *argv[2:], "--epochs", "0", "--device",
+                       str(dev)])
+        with _StepTimes() as steps:
+            t_main, st = _synced(lambda: train_am.main([*argv, "--device", str(dev)]))
+        assert len(st.history) == 1 and len(steps.times) == 2, (arch, steps.times)
+        h = st.history[0]
+        finite = [np.isfinite(h[k]) for k in ("train_loss", "dev_loss")]
+        if arch == "modnet_sigmoid":
+            # the JAX fault both packages share: sqrt's 0 / 0 gradient on
+            # the all-zero patches past an utterance's end
+            assert not any(finite), (arch, h)
+        elif arch in ("cnn", "cldnn", "modnet"):
+            assert all(finite), (arch, h)
+        # the conv VAEs may diverge under Adam at these widths, in both
+        # packages (their KL holds exp(logvar) ** 2; ROADMAP Queue 3)
+        args = train_am.get_parser().parse_args(argv)
+        # the conv VAEs' KL holds exp(logvar) ** 2, which turns float32
+        # rounding of a large logvar into more than ZOO_LOSS_REL: their
+        # first-step loss is compared in float64, as phase 13's
+        # transformer VAE's
+        dtype = torch.float64 if "vae" in arch else torch.float32
+        loss, dumps = {}, {}
+        for d in (str(dev), "cpu"):
+            model, _, _ = dump_outputs.load_model_from_checkpoint(store + "_init", d)
+            fn = train_am.make_loss(args, None, torch.Generator().manual_seed(11))
+            batch = {k: v.to(dtype) if v.is_floating_point() else v
+                     for k, v in train_am.batch_on_device(small, torch.device(d)).items()}
+            with torch.no_grad():
+                loss[d] = fn(model.to(dtype), batch, True)[0].item()
+            dumps[d] = dump_outputs.main([store + "_init", j("zoo_small"), j(f"conv_out_{d}"),
+                                          "--device", d])
+        if arch == "rs_vae" and not np.isfinite(loss["cpu"]):
+            # its KL overflows float64 on these features at init, on both
+            # devices (ROADMAP Queue 3): hold the log-std head instead
+            assert not np.isfinite(loss[str(dev)]), loss
+            loss_rel, logvars = float("nan"), {}
+            for d in (str(dev), "cpu"):
+                model, _, _ = dump_outputs.load_model_from_checkpoint(store + "_init", d)
+                x = train_am.image(torch.as_tensor(small["feats"], device=d, dtype=dtype))
+                with torch.no_grad():
+                    logvars[d] = {"lv": model.to(dtype)(x, eps=torch.zeros(1))[1][1].cpu().numpy()}
+            lv_rel = _max_rel(logvars[str(dev)], logvars["cpu"])
+            assert lv_rel <= ZOO_OUT_REL, lv_rel
+            log(f"[conv] rs_vae first-step loss NaN on card and cpu (float64); its log-std head "
+                f"reaches {np.abs(logvars['cpu']['lv']).max():.1f}, card vs cpu {lv_rel:.2e} of "
+                f"scale (limit {ZOO_OUT_REL})")
+        else:
+            loss_rel = _rel(loss[str(dev)], loss["cpu"])
+            assert np.isfinite(loss["cpu"]) and loss_rel <= ZOO_LOSS_REL, (arch, loss)
+        assert all(np.isfinite(v).all() for v in dumps[str(dev)].values()), arch
+        out_rel = _max_rel(dumps[str(dev)], dumps["cpu"])
+        assert out_rel <= ZOO_OUT_REL, (arch, out_rel)
+        width = next(iter(dumps["cpu"].values())).shape[1]
+        rows.append((arch, steps.times, t_main, h, loss[str(dev)], loss_rel, out_rel, width,
+                     dtype))
+    for arch, times, t_main, h, l0, lrel, orel, width, dtype in rows:
+        log(f"[conv] {arch:15s} ms a step {times[0] * 1e3:8.1f} / {times[1] * 1e3:8.1f} "
+            f"(first / second); train_am.main {t_main:6.2f} s; train {h['train_loss']:.6g} dev "
+            f"{h['dev_loss']:.6g}; first-step loss card {l0:.6g} ({str(dtype)[6:]}), rel to "
+            f"cpu {lrel:.2e} (limit {ZOO_LOSS_REL}); dump_outputs ({width} per frame) card vs "
+            f"cpu {orel:.2e} of scale (limit {ZOO_OUT_REL})")
+
+    # a reference nnetCLDNN, imported, dumped card vs CPU
+    cfg_egs, _ = load_egs(j("zoo_egs"))
+    torch.manual_seed(seed)
+    ref = _CldnnRef(cfg_egs.feat_dim, CLDNN_IMPORT["channels"], CLDNN_IMPORT["hidden"],
+                    CLDNN_IMPORT["lstm_layers"], HYBRID_CLASSES)
+    torch.save({"model_state_dict": ref.state_dict(), "dropout": 0.0, "epoch": 1},
+               j("cldnn.model"))
+    import_torch_ckpt.main([j("cldnn.model"), j("imp_cldnn")])
+    t_dump, dumps = {}, {}
+    for d in (str(dev), "cpu"):
+        t_dump[d], dumps[d] = _synced(lambda: dump_outputs.main(
+            [j("imp_cldnn"), j("zoo_small"), j(f"imp_cldnn_{d}"), "--device", d]))
+    imp_rel = _max_rel(dumps[str(dev)], dumps["cpu"])
+    assert all(np.isfinite(v).all() for v in dumps[str(dev)].values())
+    assert imp_rel <= ZOO_OUT_REL, imp_rel
+    log(f"[conv] imported nnetCLDNN ({CLDNN_IMPORT['channels']} channels, "
+        f"{CLDNN_IMPORT['lstm_layers']} x {CLDNN_IMPORT['hidden']} LSTM, {HYBRID_CLASSES} "
+        f"classes): dump_outputs card {t_dump[str(dev)]:.2f} s, card vs cpu {imp_rel:.2e} of "
+        f"scale (limit {ZOO_OUT_REL}); phase 14 (a) took {time.perf_counter() - t_phase:.1f} s")
+
+
+class _AdaptStepTimes:
+    """Times every step of infer.adapt's make_adapt_step (synchronised)
+    while active."""
+
+    def __enter__(self):
+        from speech_recognition_tools_tpu_torch.infer import adapt
+
+        self.mod, self.orig, self.times = adapt, adapt.make_adapt_step, []
+        orig, times = self.orig, self.times
+
+        def timed_make(*a, **kw):
+            step, opt = orig(*a, **kw)
+
+            def timed(state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                return out
+
+            return timed, opt
+
+        adapt.make_adapt_step = timed_make
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_adapt_step = self.orig
+
+
+def adapt_phase(rng, dev, tmp):
+    """Phase 14 (b): the demo recipe's stage 5 at timit_hybrid on the card:
+    FDLP featgen (K1, counted, then held to its plain version on the path's
+    lags) of ADAPT_UTTS held-out utterances with phase 6's CMVN as the
+    unlabeled test set -> adapt_am.main of phase 6's AM (3 x 512 GRU,
+    3,376 classes) against phase 13's pm_ae PM (2 + 2 x 512, bn 64), one
+    epoch at batch ADAPT_BATCH, dev FER on phase 6's egs -> the adapted
+    checkpoint reloaded -> pm_score_cli pm of the adapted AM. The first
+    step's PM loss card vs CPU. Returns K1's launches."""
+    import os
+
+    from speech_recognition_tools_tpu_torch.cli import adapt_am, dump_outputs, pm_score_cli
+    from speech_recognition_tools_tpu_torch.dsp.fdlp import (
+        FdlpConfig,
+        fdlp_lags,
+        fdlp_spectrogram_batch,
+    )
+    from speech_recognition_tools_tpu_torch.infer.adapt import AdaptConfig, make_adapt_loss
+    from speech_recognition_tools_tpu_torch.io.egs import build_egs, iter_egs_batches, load_egs
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import (
+        lpc_cepstra,
+        lpc_cepstra_reference,
+    )
+
+    t_phase = time.perf_counter()
+    hyb = FdlpConfig()
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    xa, la = speechlike_batch(rng, ADAPT_UTTS, 1.0, 2.5)
+    t = {}
+    lpc_cepstra.launches = 0
+    t0 = time.perf_counter()
+    feats, nfr = fdlp_spectrogram_batch(xa, la, hyb, device=dev)
+    cfg_egs, _ = load_egs(j("hyb_egs"))
+    cmvn = (np.asarray(cfg_egs.cmvn_mean), np.asarray(cfg_egs.cmvn_std))
+    keys = [f"ad{b:02d}" for b in range(ADAPT_UTTS)]
+    rows = [(k, feats[b, : int(nfr[b])].cpu().numpy()) for b, k in enumerate(keys)]
+    build_egs(iter(rows), j("adapt_egs"), cmvn=cmvn)
+    short = sorted(range(ADAPT_UTTS), key=lambda b: int(nfr[b]))[:ZOO_CPU_UTTS]
+    build_egs(iter(rows[b] for b in short), j("adapt_small"), cmvn=cmvn)
+    t["featgen + egs"] = time.perf_counter() - t0
+    with _AdaptStepTimes() as steps:
+        t["adapt_am"], res = _synced(lambda: adapt_am.main(
+            [j("hyb_am"), j("pm"), j("adapt_egs"), j("adapted"), "--dev_egs_dir", j("hyb_egs"),
+             "--epochs", "1", "--batch_size", str(ADAPT_BATCH), "--device", str(dev)]))
+    t["pm_score_cli pm (adapted AM)"], scores = _synced(lambda: pm_score_cli.main(
+        ["pm", j("adapted"), j("pm"), j("adapt_egs"), j("adapted_pm.pkl"), "--device",
+         str(dev)]))
+    torch.cuda.synchronize()
+    launches = lpc_cepstra.launches
+    assert launches > 0, "the adaptation path's featgen did not launch K1"
+    assert len(steps.times) == -(-ADAPT_UTTS // ADAPT_BATCH), steps.times
+    fers = [m["fer"] for m in res["dev"]]
+    assert len(fers) == 2 and all(np.isfinite(fers)), res
+    assert sorted(scores) == keys and all(np.isfinite(v) for v in scores.values())
+    # the adapted checkpoint reloads, and moved away from phase 6's AM
+    adapted, path, _ = dump_outputs.load_model_from_checkpoint(j("adapted"), dev)
+    source, _, _ = dump_outputs.load_model_from_checkpoint(j("hyb_am"), dev)
+    assert os.path.basename(path) == "adapted"
+    moved = max((a - b).abs().max().item() for a, b in zip(adapted.state_dict().values(),
+                                                           source.state_dict().values()))
+    assert all(torch.isfinite(v).all() for v in adapted.state_dict().values()) and moved > 0
+    # the first step's PM loss on the card and on the CPU
+    small = next(iter_egs_batches(j("adapt_small"), ZOO_CPU_UTTS, drop_labels=True))
+    loss = {}
+    for d in (str(dev), "cpu"):
+        am = dump_outputs.load_model_from_checkpoint(j("hyb_am"), d)[0]
+        pm = dump_outputs.load_model_from_checkpoint(j("pm"), d)[0]
+        fn = make_adapt_loss(am, pm, np.zeros(HYBRID_CLASSES, np.float32), AdaptConfig())
+        with torch.no_grad():
+            loss[d] = fn({k: torch.as_tensor(small[k], device=d)
+                          for k in ("feats", "lengths")}).item()
+    loss_rel = _rel(loss[str(dev)], loss["cpu"])
+    assert np.isfinite(loss["cpu"]) and loss_rel <= ADAPT_LOSS_REL, loss
+    # K1 on the path's own lags against its plain version
+    r, _ = fdlp_lags(xa, la, hyb, device=dev)
+    r = r.reshape(-1, r.shape[-1])
+    got = lpc_cepstra(r, hyb.order, hyb.coeff_num)
+    ref = lpc_cepstra_reference(r, hyb.order, hyb.coeff_num)
+    ref64 = lpc_cepstra_reference(r.double(), hyb.order, hyb.coeff_num)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _, k1_t, k1_rel = cep_agreement(f"adaptation lags P={r.shape[0]}", got, ref)
+
+    def to64(c):  # the worst per-coefficient distance to the float64 plain version
+        err = (c.double() - ref64).abs().amax(0)
+        return (err / ref64.abs().mean(0).clamp_min(1e-30)).max().item()
+
+    log(f"[k1] adaptation lags: worst max|err_n|/mean|c_n| against the float64 plain version: "
+        f"kernel {to64(got):.3e}, float32 plain {to64(ref):.3e}")
+    assert k1_t <= MAIN_PATH_TOL and k1_rel <= ADAPT_K1_REL, (k1_t, k1_rel)
+
+    log(f"[adapt] timit_hybrid: {ADAPT_UTTS} held-out utterances of 1-2.5 s "
+        f"({int(nfr.sum())} frames) -> adapt_am of phase 6's AM against phase 13's PM, 1 epoch "
+        f"at batch {ADAPT_BATCH} (adam, lr 1e-4, mse, no shift): ms a step (synchronised) "
+        + ", ".join(f"{s * 1e3:.1f}" for s in steps.times)
+        + f"; dev FER on phase 6's egs {fers[0]:.2f}% before, {fers[1]:.2f}% after; max "
+        f"|adapted - source| {moved:.3e}; K1 launches {launches}")
+    log(f"[adapt] first-step PM loss card {loss[str(dev)]:.6f}, rel to cpu {loss_rel:.2e} "
+        f"(limit {ADAPT_LOSS_REL}); pm_score_cli pm of the adapted AM: {ADAPT_UTTS} scores, "
+        f"sample {scores[keys[0]]:.4f}")
+    log("[adapt] wall s by stage: " + ", ".join(f"{k} {v:.3f}" for k, v in t.items())
+        + f"; phase 14 (b) took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def lifelong_phase(dev, tmp):
+    """Phase 14 (c): lifelong_decode.main on the card over (b)'s egs with
+    two task classifiers at timit_hybrid width (phase 6's AM and a second
+    seeded 3 x 512 GRU) and two seeded GRU VAEs at train_am's defaults (3 +
+    1 x 512, bn 64) over the features, or, for postpm, over the
+    classifiers' 3,376 outputs (--pm_on posteriors); every fusion. Fused
+    arks card vs CPU on ZOO_CPU_UTTS utterances; utterances a second."""
+    import os
+
+    from speech_recognition_tools_tpu_torch.cli import lifelong_decode, train_am
+
+    t_phase = time.perf_counter()
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    seeded = ["--epochs", "0", "--device", str(dev), "--seed"]
+    train_am.main([j("hyb_egs"), j("ll_am1"), "--arch", "rnn", "--num_layers",
+                   str(HYBRID_TRAIN["num_layers"]), "--hidden_dim",
+                   str(HYBRID_TRAIN["hidden_dim"]), *seeded, "1"])
+    vae = [*_argv(ZOO_TRAIN), "--arch", "vae"]
+    for i in range(2):
+        train_am.main([j("hyb_egs"), j(f"ll_vae{i}"), *vae, *seeded, str(i)])
+        train_am.main([j("pm_egs"), j(f"ll_qvae{i}"), *vae, *seeded, str(i)])
+    pcx = f"{j('hyb_am')},{j('ll_am1')}"
+    priors = f"{j('prior.pkl')},{j('prior.pkl')}"
+    rows = []
+    for fusion, (task_prior, *extra) in LIFELONG_RUNS.items():
+        px = "ll_qvae" if fusion == "postpm" else "ll_vae"
+        argv = [pcx, f"{j(px + '0')},{j(px + '1')}"]
+        flags = ["--fusion", fusion, *extra]
+        t_run, out = _synced(lambda: lifelong_decode.main(
+            [*argv, j("adapt_egs"), priors, task_prior, j(f"ll_{fusion}"), *flags, "--device",
+             str(dev)]))
+        assert len(out) == ADAPT_UTTS and all(np.isfinite(v).all() for v in out.values()), \
+            fusion
+        both = {d: lifelong_decode.main([*argv, j("adapt_small"), priors, task_prior,
+                                         j(f"ll_{fusion}_{d}"), *flags, "--device", d])
+                for d in (str(dev), "cpu")}
+        rel = _max_rel(both[str(dev)], both["cpu"])
+        assert rel <= LIFELONG_REL, (fusion, rel)
+        rows.append((fusion, task_prior, extra, t_run, rel))
+    for fusion, tp, extra, t_run, rel in rows:
+        log(f"[lifelong] --fusion {fusion:11s} {tp:6s} {' '.join(extra):21s} "
+            f"{ADAPT_UTTS / t_run:6.1f} utterances a second ({t_run:.2f} s, 2 classifiers + "
+            f"2 VAEs on the card, fusion on the host); card vs cpu {rel:.2e} of scale (limit "
+            f"{LIFELONG_REL})")
+    log(f"[lifelong] phase 14 (c) took {time.perf_counter() - t_phase:.1f} s")
+
+
+def cl_phase(e2e, dev, tmp):
+    """Phase 14 (d): recog_e2e.main --api cl over phase 5's and phase 7's
+    wsj_fdlp_e2e models (12 / 6 layers, one 52-token vocabulary) with
+    --pm_scores CL_PM_SCORES, beam 10, max_len CL_MAX_LEN, over phase 7's
+    egs, one utterance at a time: ms a search step; the hypotheses card vs
+    CPU on CL_CPU_UTTS utterances; --compute_dtype bfloat16 once, its
+    best hypotheses' fused scores finite."""
+    import json
+    import os
+
+    from speech_recognition_tools_tpu_torch.cli import recog_e2e
+    from speech_recognition_tools_tpu_torch.io.egs import build_egs, iter_egs_batches, load_egs
+    from speech_recognition_tools_tpu_torch.io.jax_params import transformer_asr_to_jax
+    from speech_recognition_tools_tpu_torch.io.text import decode_tokens, save_vocab
+    from speech_recognition_tools_tpu_torch.models.transformer_asr import (
+        TransformerASR,
+        cl_decode,
+    )
+    from speech_recognition_tools_tpu_torch.train.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    asr = e2e["asr"]
+    cfg_egs, utts = load_egs(j("e2e_egs"))
+    hyper = dict(model_class="TransformerASR", **E2E_AM, mtlalpha=0.3, lsm_weight=0.1,
+                 encoder_type="transformer", feature_dim=cfg_egs.feat_dim)
+    save_checkpoint(j("cl_m5"), "final_avg", transformer_asr_to_jax(
+        asr.state_dict(), E2E_AM["aheads"]), hyper)
+    save_vocab(e2e["vocab"], j("cl_m5", "vocab.json"))
+    with open(j("e2e_am", "vocab.json")) as fh:
+        assert json.load(fh) == e2e["vocab"], "phase 5's and phase 7's vocabularies differ"
+    dirs = f"{j('cl_m5')},{j('e2e_am')}"
+    # phase 7's egs hold each utterance twice (keys ...a, ...b): one copy each
+    short = sorted((u for u in utts if u[0].endswith("a")), key=lambda u: len(u[1]))
+    short = short[:CL_CPU_UTTS]
+    build_egs(((k, f) for k, f, _ in short), j("cl_small"))
+    cl = ["--api", "cl", "--pm_scores", CL_PM_SCORES, "--beam_size", "10", "--max_len",
+          str(CL_MAX_LEN)]
+
+    calls = [0]
+    orig = TransformerASR.decode_step
+
+    def counted(self, *a, **kw):
+        calls[0] += 1
+        return orig(self, *a, **kw)
+
+    TransformerASR.decode_step = counted
+    try:
+        t_cl, hyps = _synced(lambda: recog_e2e.main(
+            [dirs, j("e2e_egs"), j("cl_hyp.txt"), *cl, "--device", str(dev)]))
+    finally:
+        TransformerASR.decode_step = orig
+    steps = calls[0] // 2
+    assert len(hyps) == len(utts) and all(isinstance(h, str) for h in hyps.values())
+    empty = sum(not h for h in hyps.values())
+    small = {d: recog_e2e.main([dirs, j("cl_small"), j(f"cl_small_{d}.txt"), *cl, "--device",
+                                d]) for d in (str(dev), "cpu")}
+    assert small[str(dev)] == small["cpu"], small
+    t_bf16, hyps16 = _synced(lambda: recog_e2e.main(
+        [dirs, j("cl_small"), j("cl_small_bf16.txt"), *cl, "--compute_dtype", "bfloat16",
+         "--device", str(dev)]))
+    # the bf16 search again (cl_decode on the CLI's padded batches), its
+    # best hypotheses rescored by its own models
+    models = [recog_e2e._load(d, "final_avg", "bfloat16", device=dev)[0]
+              for d in dirs.split(",")]
+    pm = [float(v) for v in CL_PM_SCORES.split(",")]
+    w = np.exp(300.0 * np.asarray(pm)) / np.exp(300.0 * np.asarray(pm)).sum()
+    cfg, scores16 = models[0].cfg, []
+    for b in iter_egs_batches(j("cl_small"), 1, drop_labels=True):
+        x = torch.as_tensor(b["feats"], device=dev)
+        n = torch.as_tensor(b["lengths"], device=dev)
+        toks = cl_decode(models, pm, x, n, cfg, beam_size=10, max_len=CL_MAX_LEN)
+        assert decode_tokens(toks, e2e["vocab"]) == hyps16[b["keys"][0]]
+        toks = toks + ([cfg.eos_id] if len(toks) < CL_MAX_LEN else [])
+        score = 0.0
+        with torch.no_grad():
+            for wk, m in zip(w, models):
+                mem, el, _ = m.encode(x, n)
+                prefix = torch.tensor([[cfg.sos_id, *toks[:-1]]], device=dev)
+                lp = torch.log_softmax(m.decode_step(prefix, mem, el)[0].float(), -1)
+                score += float(wk) * lp[torch.arange(len(toks)), torch.tensor(toks)].sum().item()
+        scores16.append(score)
+    assert all(np.isfinite(scores16)), scores16
+    log(f"[cl] recog_e2e --api cl over phase 5's and phase 7's models ({E2E_AM['elayers']}/"
+        f"{E2E_AM['dlayers']} layers, --pm_scores {CL_PM_SCORES}: weights "
+        f"{w[0]:.3f} / {w[1]:.3f}), beam 10, max_len {CL_MAX_LEN}, over phase 7's {len(utts)} "
+        f"utterances: {t_cl:.2f} s, {steps} search steps, {t_cl / max(steps, 1) * 1e3:.2f} ms "
+        f"a step (both models' full-prefix decoders, the ranking, the encoders' share "
+        f"included); {empty} empty hypotheses (no length normalisation: a beam that ends "
+        f"early keeps its score); {len(small['cpu'])} utterances card vs cpu token-identical "
+        f"({sum(len(h) for h in small['cpu'].values())} characters); bf16 "
+        f"({t_bf16:.2f} s for {len(short)} utterances) best fused scores "
+        + ", ".join(f"{v:.3f}" for v in scores16)
+        + f"; phase 14 (d) took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3564,8 +4013,15 @@ def main():
         pm_launches = pm_stage_phase(rng, dev, tmp)
         zoo_phase(dev, tmp)
         log(f"[phase13] {time.perf_counter() - t13:.2f} s")
+        # ---- 14. the conv zoo, adaptation, lifelong decoding, the CL decode ----
+        t14 = time.perf_counter()
+        conv_zoo_phase(dev, tmp, args.seed)
+        adapt_launches = adapt_phase(rng, dev, tmp)
+        lifelong_phase(dev, tmp)
+        cl_phase(e2e_model, dev, tmp)
+        log(f"[phase14] {time.perf_counter() - t14:.2f} s")
 
-    # ---- 14. every kernel of the port ----
+    # ---- 15. every kernel of the port ----
     log(json.dumps({"kernels": [{
         "name": "lpc_cepstra",
         "route": "cuda",
@@ -3580,7 +4036,7 @@ def main():
                              "conformer_e2e": conf_launches,
                              "conformer_stream": conf_stream_launches,
                              "modspec": modspec_launches, "bf16_e2e": bf16_launches,
-                             "pm_stage": pm_launches},
+                             "pm_stage": pm_launches, "adapt": adapt_launches},
         "max_abs_err": main_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -3595,7 +4051,7 @@ def main():
     # names the card and its power limit beside the numbers above
     log(smi)
 
-    # ---- 15. contract line ----
+    # ---- 16. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -14,13 +14,23 @@ hybrid-decode edge, decode_dnn.sh stage 0). It runs on the card unless
     python -m speech_recognition_tools_tpu_torch.cli.dump_outputs exp/am egs/ out/ll \\
         --prior exp/am/prior.pkl --prior_weight 0.8 [--device cpu]
 
-Every arch of cli/train_am.py::PORTED_ARCHS loads; a checkpoint of the
-conv half raises NotImplementedError naming its ROADMAP item. CURL's
-output is the categorical-posterior-weighted mixture of its stream
-classifiers' softmaxes, as log-probabilities floored at 1e-12; a sampling
-arch draws its latent from a CPU torch.Generator seeded 2 for every batch
-where the JAX CLI passes jax.random.key(2) (arch_forward's own default:
-seeded 0, for key(0)), so that the card and the CPU draw the same. The
+Every arch of cli/train_am.py loads, and every family the importer
+writes. CURL's output is the categorical-posterior-weighted mixture of its
+stream classifiers' softmaxes, as log-probabilities floored at 1e-12; a
+sampling arch draws its latent (modnet its gumbel uniforms) from a CPU
+torch.Generator seeded 2 for every batch where the JAX CLI passes
+jax.random.key(2) (arch_forward's own default: seeded 0, for key(0)), so
+that the card and the CPU draw the same.
+
+The conv half runs on each utterance's (1, D, T) image (cnn, cldnn: the
+logits; vae_cnn, rs_vae: the per-frame latent means) or, for
+vae_cnn_pool, modnet and modnet_sigmoid, on the centre-aligned patches of
+the trained width around every frame with full context, one row per
+patch (the pooled VAE's bottleneck means, the modnets' logits), the first
+and last rows repeated out to the utterance's T frames. The JAX
+dump_outputs runs only vae_cnn_pool of these; for the other six its
+generic branch passes (feats, lengths) to models that take one image, and
+raises (ROADMAP Queue 3). The
 port's constructors take their input widths, so a model is shaped from
 its config (and, for multimod, its streams' widths from the checkpoint)
 instead of from a first batch, and the JAX arch_init (a shape-init
@@ -116,11 +126,28 @@ def arch_forward(model, cfg, feats, lengths, generator=None, encode_fn=None):
     dump_multimod_outputs.py, compute_CURL_classifier_likelihood.py)."""
     import torch
 
-    from speech_recognition_tools_tpu_torch.cli.train_am import SAMPLING_ARCHS, split_streams
+    from speech_recognition_tools_tpu_torch.cli.train_am import (
+        IMAGE_ARCHS,
+        PATCH_ARCHS,
+        SAMPLING_ARCHS,
+        image,
+        patch_frames,
+        split_streams,
+    )
 
     arch = cfg.get("arch")
     if arch in SAMPLING_ARCHS and generator is None:
         generator = torch.Generator().manual_seed(0)
+    if arch in IMAGE_ARCHS:
+        x = image(feats)
+        if arch == "cnn":
+            return model(x), []
+        if arch == "cldnn":
+            return model(x, lengths), []
+        return model(x, generator=generator)[1][0], []  # the latent means
+    if arch in PATCH_ARCHS:
+        return _patch_forward(model, arch, feats, patch_frames(argparse.Namespace(**cfg)),
+                              generator), []
     if arch == "feedforward":
         embeds, logits = model(feats)
         return logits, embeds
@@ -135,6 +162,32 @@ def arch_forward(model, cfg, feats, lengths, generator=None, encode_fn=None):
     out = (model(feats, lengths, generator=generator) if arch in SAMPLING_ARCHS
            else model(feats, lengths))
     return (out[0] if isinstance(out, tuple) else out), []
+
+
+def _patch_forward(model, arch, feats, W, generator):
+    """One row per frame from the patch archs (the JAX dump_outputs'
+    vae_cnn_pool windowing): the centre-aligned W-frame patches of every
+    start 0..T-W, encoded (the pooled VAE's means) or classified (the
+    modnets' logits), then the first and last rows repeated out to T."""
+    import torch.nn.functional as F
+
+    from speech_recognition_tools_tpu_torch.cli.train_am import extract_patches
+
+    B, T, _ = feats.shape
+    if T < W:
+        raise ValueError(f"utterance batch has {T} frames but the model was trained on "
+                         f"{W}-frame patches")
+    patches, _, _ = extract_patches(feats, None, feats.new_full((B,), T, dtype=int), W)
+    if arch == "vae_cnn_pool":
+        rows = model(patches, generator=generator)[1][0]
+    elif arch == "modnet":
+        rows = model(patches, generator=generator)[0]
+    else:
+        rows = model(patches)[0]
+    P = T - W + 1
+    rows = rows.reshape(B, P, -1).transpose(1, 2)  # (B, C, P): pad along frames
+    half = W // 2
+    return F.pad(rows, (half, T - P - half), mode="replicate").transpose(1, 2)
 
 
 def main(argv=None):

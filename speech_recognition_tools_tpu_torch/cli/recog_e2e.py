@@ -19,8 +19,17 @@ read with train/checkpoint.py; the model's config.json gives its encoder
 (transformer, or conformer with its conv_kernel), and the LM's its cell
 (gru or lstm). `--compute_dtype bfloat16` decodes in mixed precision
 (float32 weights and logit heads, bfloat16 everywhere else; offline,
-`--streaming` and the KV-cached search alike). `--api cl`, `--word_lm_dir`
-and `--ring_attention > 1` raise NotImplementedError.
+`--streaming` and the KV-cached search alike).
+
+`model_dir` may name several directories, comma-separated: all are
+loaded, and `--api v1` decodes with the first. `--api cl` with two or
+more decodes one utterance at a time with the continual-learning fusion
+(models/transformer_asr.py::cl_decode) weighted by `--pm_scores` (one per
+model), ahead of `--jit_decode`, as the JAX CLI does. Like the JAX CLI it
+parses a missing `--pm_scores` as [""] and raises ValueError there, and a
+list shorter than the models drops the models past its end (ROADMAP
+Queue 3). `--word_lm_dir` and `--ring_attention > 1` raise
+NotImplementedError.
 """
 
 import argparse
@@ -29,11 +38,12 @@ import os
 
 def get_parser():
     p = argparse.ArgumentParser("e2e ASR recognition")
-    p.add_argument("model_dir", help="train_e2e output")
+    p.add_argument("model_dir", help="train_e2e output; comma-separated for --api cl")
     p.add_argument("egs_dir")
     p.add_argument("out_text")
-    p.add_argument("--api", default="v1", choices=["v1", "cl"], help="only 'v1' is ported")
-    p.add_argument("--pm_scores", help="(cl) not yet ported")
+    p.add_argument("--api", default="v1", choices=["v1", "cl"],
+                   help="'cl': the continual-learning fusion of the comma-separated models")
+    p.add_argument("--pm_scores", help="(cl) comma-separated PM scores, one per model")
     p.add_argument("--beam_size", type=int, default=10)
     p.add_argument("--ctc_weight", type=float, default=0.3)
     p.add_argument("--penalty", type=float, default=0.0)
@@ -132,8 +142,6 @@ def _load(model_dir, ckpt, compute_dtype="float32", attn_chunk=None,
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    if args.api == "cl":
-        raise NotImplementedError("--api cl (continual-learning decode) is not yet ported")
     if args.word_lm_dir:
         raise NotImplementedError("--word_lm_dir (look-ahead word LM) is not yet ported")
     if args.ring_attention > 1:
@@ -149,27 +157,40 @@ def main(argv=None):
     from speech_recognition_tools_tpu_torch.device import resolve_device
     from speech_recognition_tools_tpu_torch.io.egs import iter_egs_batches
     from speech_recognition_tools_tpu_torch.io.text import decode_tokens, read_text_file
+    from speech_recognition_tools_tpu_torch.models.transformer_asr import cl_decode
 
     dev = resolve_device(args.device)
-    model, cfg, vocab = _load(args.model_dir, args.ckpt, args.compute_dtype,
-                              args.attn_chunk, args.attn_left_chunks, device=dev)
+    loaded = [_load(d, args.ckpt, args.compute_dtype, args.attn_chunk, args.attn_left_chunks,
+                    device=dev) for d in args.model_dir.split(",")]
+    model, cfg, vocab = loaded[0]
     lm = _load_lm(args.lm_dir, device=dev) if args.lm_dir else None
     beam = dict(beam_size=args.beam_size, max_len=args.max_len, ctc_weight=args.ctc_weight,
                 penalty=args.penalty)
 
     recognizer = None
     if args.streaming:
-        if args.jit_decode:
-            raise ValueError("--streaming is a host decode path (no --jit_decode)")
+        if args.jit_decode or args.api == "cl":
+            raise ValueError("--streaming is a host decode path (no --jit_decode, no --api cl)")
         from speech_recognition_tools_tpu_torch.infer.streaming_asr import StreamingRecognizer
 
         recognizer = StreamingRecognizer(model, vocab=vocab)
 
+    cl = args.api == "cl" and len(loaded) > 1
     hyps = {}
     batch = args.batch_size if args.jit_decode else 1
+    if cl and batch > 1:
+        print("WARNING: --api cl decodes utterance-by-utterance; forcing batch_size 1")
+        batch = 1
     for b in iter_egs_batches(args.egs_dir, batch, drop_labels=True,
                               bucket_multiple=args.bucket_frames):
-        if recognizer is not None:
+        if cl:
+            # the JAX CLI's parse: no --pm_scores gives float("") (ValueError)
+            pm = [float(x) for x in (args.pm_scores or "").split(",")] or [1.0] * len(loaded)
+            seqs = [cl_decode([m for m, _, _ in loaded], pm,
+                              torch.as_tensor(b["feats"], device=dev),
+                              torch.as_tensor(b["lengths"], device=dev), cfg,
+                              beam_size=args.beam_size, max_len=args.max_len)]
+        elif recognizer is not None:
             # online decode: emulate frame arrival; the streamed encoder
             # output is the offline chunked encode, so the final beam is
             # the offline joint decode

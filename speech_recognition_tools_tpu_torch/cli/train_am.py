@@ -10,20 +10,25 @@ optimizer state in flax's tree), the LR-halve-and-revert schedule
     python -m speech_recognition_tools_tpu_torch.cli.train_am egs/ exp/am \
         --arch pm_ae --num_layers 2 --num_layers_dec 2 --loss mse [--device cpu]
 
-PORTED_ARCHS are the GRU and Dense archs: rnn, linear, feedforward
-(`--frame_egs` for frame-level egs), multitask_ae, multitask_aear
-(`--time_shift`), multimod (`--multi_egs_dirs`), vae (`--only_ae`,
-`--use_transformer`, `--loss vae_gauss|vae_laplace`), vae_classifier,
-arvae, vae_encoded and curl_encoded (on a frozen `--base_model`), pm_ae,
-apc, curl (`--expand_from`) and curl_unsup; the optimizers are adam,
-adadelta, sgd, adagrad and rmsprop (train/optim.py). The conv half (cnn,
-cldnn, vae_cnn, vae_cnn_pool, rs_vae, modnet, modnet_sigmoid),
+Every arch of the JAX CLI runs: rnn, linear, feedforward (`--frame_egs`
+for frame-level egs), multitask_ae, multitask_aear (`--time_shift`),
+multimod (`--multi_egs_dirs`), vae (`--only_ae`, `--use_transformer`,
+`--loss vae_gauss|vae_laplace`), vae_classifier, arvae, vae_encoded and
+curl_encoded (on a frozen `--base_model`), pm_ae, apc, curl
+(`--expand_from`), curl_unsup, and the conv half: cnn and cldnn (over the
+(1, D, T) image of each utterance), vae_cnn and rs_vae (the same image,
+per-frame latents), vae_cnn_pool, modnet and modnet_sigmoid (on
+`--patch_width`-frame patches around every frame with full context:
+`extract_patches`). An importer's checkpoint gives its conv geometry in
+the `cnn_in_channels`, `cnn_out_channels` and `cnn_kernel` keys. The
+optimizers are adam, adadelta, sgd, adagrad and rmsprop (train/optim.py).
 `--data_parallel` and `--expert_parallel` raise NotImplementedError naming
 their ROADMAP item.
 
 As in the JAX CLI every loss applies its model deterministically (no
-dropout draws). The latent samples of vae, vae_classifier, arvae, curl and
-curl_unsup come from one CPU torch.Generator seeded with `--seed`, moved
+dropout draws). The latent samples of vae, vae_classifier, arvae, curl,
+curl_unsup, vae_cnn, vae_cnn_pool and rs_vae, and modnet's gumbel
+uniforms, come from one CPU torch.Generator seeded with `--seed`, moved
 to the training device, so that the card and the CPU draw the same (the
 JAX trainer splits a key per step: its draws differ); curl_unsup's prior
 means from a CPU generator seeded `--seed` + 99.
@@ -56,13 +61,13 @@ ARCHS = {
     "vae_encoded": "VAEEncodedClassifier",
     "curl_encoded": "CurlEncodedClassifier",
 }
-PORTED_ARCHS = ("rnn", "linear", "feedforward", "multitask_ae", "multitask_aear", "multimod",
-                "vae", "vae_classifier", "arvae", "vae_encoded", "pm_ae", "apc", "curl",
-                "curl_unsup", "curl_encoded")
-CONV_ITEM = ("ROADMAP Queue 1 item 1: the rest of the model zoo, its conv half "
-             "(models/cnn.py, models/modnet.py)")
 PARALLEL_ITEM = "ROADMAP Queue 1 item 5: data and expert parallelism"
-SAMPLING_ARCHS = ("vae", "vae_classifier", "arvae", "curl", "curl_unsup")
+SAMPLING_ARCHS = ("vae", "vae_classifier", "arvae", "curl", "curl_unsup", "vae_cnn",
+                  "vae_cnn_pool", "rs_vae", "modnet")
+# the conv archs that see each utterance as one (B, 1, D, T) image, and
+# those that see --patch_width-frame patches
+IMAGE_ARCHS = ("cnn", "cldnn", "vae_cnn", "rs_vae")
+PATCH_ARCHS = ("vae_cnn_pool", "modnet", "modnet_sigmoid")
 
 
 def get_parser():
@@ -70,8 +75,7 @@ def get_parser():
     p.add_argument("egs_dir", help="egs directory (io.egs.build_egs output)")
     p.add_argument("store_path", help="checkpoint directory")
     p.add_argument("--dev_egs_dir", help="dev egs dir (defaults to a tail of egs_dir)")
-    p.add_argument("--arch", default="rnn", choices=sorted(ARCHS),
-                   help="the conv archs are not yet ported")
+    p.add_argument("--arch", default="rnn", choices=sorted(ARCHS))
     p.add_argument("--num_layers", type=int, default=3)
     p.add_argument("--num_layers_dec", type=int, default=1)
     p.add_argument("--hidden_dim", type=int, default=512)
@@ -107,9 +111,11 @@ def get_parser():
     p.add_argument("--frame_egs", action="store_true",
                    help="(arch=feedforward) egs_dir holds frame-level shuffled egs "
                         "(io.egs.build_frame_egs)")
-    p.add_argument("--patch_width", type=int, default=21)
-    p.add_argument("--freq_num", type=int, default=10)
-    p.add_argument("--head_num", type=int, default=4)
+    p.add_argument("--patch_width", type=int, default=21,
+                   help="(vae_cnn_pool, modnet archs) frames per input patch")
+    p.add_argument("--freq_num", type=int, default=10,
+                   help="(modnet archs) candidate modulation frequencies")
+    p.add_argument("--head_num", type=int, default=4, help="(modnet) gumbel frequency-pick heads")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p
 
@@ -125,8 +131,6 @@ def build_model(args, feat_dim, num_classes, device="cuda", *, stream_sizes=None
     from speech_recognition_tools_tpu_torch.device import configure_cuda, resolve_device
     from speech_recognition_tools_tpu_torch.models import apc, curl, recurrent, vae
 
-    if args.arch not in PORTED_ARCHS:
-        raise NotImplementedError(f"--arch {args.arch} is not yet ported ({CONV_ITEM})")
     dev = resolve_device(device)
     if dev.type == "cuda":
         configure_cuda()
@@ -173,8 +177,81 @@ def build_model(args, feat_dim, num_classes, device="cuda", *, stream_sizes=None
     if a.arch == "curl_unsup":
         return curl.CurlSupervised(feat_dim, a.num_layers, a.num_layers_dec, a.hidden_dim,
                                    a.bn_dim, a.comp_num, **kw)
-    cls = vae.VAEEncodedClassifier if a.arch == "vae_encoded" else curl.CurlEncodedClassifier
-    return cls(latent_dim, a.num_layers, a.hidden_dim, num_classes, **kw)
+    if a.arch in ("vae_encoded", "curl_encoded"):
+        cls = (vae.VAEEncodedClassifier if a.arch == "vae_encoded"
+               else curl.CurlEncodedClassifier)
+        return cls(latent_dim, a.num_layers, a.hidden_dim, num_classes, **kw)
+    return _build_conv(a, feat_dim, num_classes, kw)
+
+
+def _build_conv(a, feat_dim, num_classes, kw):
+    """The conv half, shaped as the JAX build_model shapes it: channels and
+    kernel from hidden_dim, or from an importer's cnn_* keys."""
+    from speech_recognition_tools_tpu_torch.models import cnn, modnet
+
+    def geom(attr, default):
+        v = getattr(a, attr, None)
+        return tuple(v) if v else default
+
+    kernel = geom("cnn_kernel", (3, 3))
+    if a.arch == "cnn":
+        return cnn.CNNFrameClassifier(
+            feat_dim, geom("cnn_out_channels", (a.hidden_dim // 8,) * a.num_layers_dec),
+            kernel, num_classes, **kw)
+    if a.arch == "cldnn":
+        return cnn.CLDNN(feat_dim, geom("cnn_out_channels", (a.hidden_dim // 8,)), kernel,
+                         a.hidden_dim, a.num_layers, a.num_layers_dec, num_classes, **kw)
+    if a.arch in ("vae_cnn", "vae_cnn_pool", "rs_vae"):
+        ch = max(2, a.hidden_dim // 16)
+        ins = geom("cnn_in_channels", (1, ch))
+        outs = geom("cnn_out_channels", (ch, 2 * ch))
+        if a.arch == "vae_cnn_pool":
+            return cnn.VAECNN((feat_dim, patch_frames(a)), ins, outs, kernel, a.bn_dim, **kw)
+        cls = cnn.VAECNNNopool if a.arch == "vae_cnn" else cnn.VaeRsModulation
+        return cls(feat_dim, ins, outs, kernel, a.bn_dim, **kw)
+    k = geom("cnn_kernel", (3,))[0]
+    outs = geom("cnn_out_channels", (4,))
+    W = a.patch_width
+    if a.arch == "modnet":
+        return modnet.ModulationNet(feat_dim, W, (1,), outs, k, a.freq_num, W / 100.0,
+                                    a.head_num, a.num_layers_dec, a.hidden_dim, num_classes,
+                                    **kw)
+    if a.arch == "modnet_sigmoid":
+        return modnet.ModulationSigmoidNet(
+            feat_dim, W, (1,), outs, k, getattr(a, "input_filter_kernel", None) or 5,
+            a.freq_num, W / 100.0, a.num_layers_dec, a.hidden_dim, num_classes, **kw)
+    raise ValueError(a.arch)
+
+
+def patch_frames(args) -> int:
+    """The pooled conv VAE's patch width: an importer's num_frames, else
+    train_am's --patch_width (21 by default)."""
+    return int(getattr(args, "num_frames", None) or getattr(args, "patch_width", None) or 21)
+
+
+def image(feats):
+    """(B, T, D) -> the (B, 1, D, T) image of the conv archs."""
+    return feats.transpose(1, 2)[:, None]
+
+
+def extract_patches(feats, labels, lengths, width):
+    """Centre-frame patches (the JAX _extract_patches): every frame start
+    0..T-width gives a (1, D, width) patch labelled by its centre frame,
+    valid where the centre lies before the utterance's length - width // 2.
+    (B, T, D) -> patches (B * P, 1, D, width), labels (B * P,) or None,
+    valid (B * P,)."""
+    import torch
+
+    B, T, D = feats.shape
+    half = width // 2
+    starts = torch.arange(max(T - width + 1, 0), device=feats.device)
+    idx = starts[:, None] + torch.arange(width, device=feats.device)[None, :]
+    patches = feats[:, idx].transpose(2, 3)[:, :, None]  # (B, P, 1, D, W)
+    centers = starts + half
+    valid = centers[None, :] < (lengths[:, None] - half).clamp_min(0)
+    P = patches.shape[1]
+    lab = labels[:, centers].reshape(B * P) if labels is not None else None
+    return patches.reshape(B * P, 1, D, width), lab, valid.reshape(B * P)
 
 
 def split_streams(feats, comp_num):
@@ -203,8 +280,6 @@ def make_loss(args, encode_fn=None, generator=None):
     )
 
     arch = args.arch
-    if arch not in PORTED_ARCHS:
-        raise NotImplementedError(f"--arch {arch} is not yet ported ({CONV_ITEM})")
     if arch in SAMPLING_ARCHS and generator is None:
         generator = torch.Generator().manual_seed(args.seed)
     mean_p = None
@@ -287,8 +362,42 @@ def make_loss(args, encode_fn=None, generator=None):
                 return masked_mse(recon, feats[:, ts:], lengths - ts), {}
             recon, _ = model(feats, lengths)
             return masked_mse(recon, feats, lengths), {}
-        pred, _ = model(feats, lengths)  # apc
-        return apc.apc_loss(pred, feats, lengths, args.time_shift or 3), {}
+        if arch == "apc":
+            pred, _ = model(feats, lengths)
+            return apc.apc_loss(pred, feats, lengths, args.time_shift or 3), {}
+        if arch in ("cnn", "cldnn"):
+            x = image(feats)
+            return classify(model(x) if arch == "cnn" else model(x, lengths), batch, lengths)
+        if arch in ("modnet", "modnet_sigmoid"):
+            patches, lab, valid = extract_patches(feats, batch["labels"], lengths,
+                                                  args.patch_width)
+            logits = model(patches, **draw)[0] if arch == "modnet" else model(patches)[0]
+            lab = lab.long()
+            w = valid.to(logits.dtype)
+            ce = F.cross_entropy(logits, lab, reduction="none")
+            wrong = (logits.argmax(-1) != lab) & valid
+            return ((ce * w).sum() / w.sum().clamp_min(1.0),
+                    {"fer": 100.0 * wrong.sum() / valid.sum().clamp_min(1)})
+        if arch == "vae_cnn_pool":
+            # the plain per-element mean of the reference's vae_loss over
+            # the valid patches
+            patches, _, valid = extract_patches(feats, None, lengths, args.patch_width)
+            recon, (means, logvars) = model(patches, **draw)
+            w4 = valid.to(recon.dtype)[:, None, None, None]
+            ll = ((-0.5 * (patches - recon) ** 2 - 0.5 * vae.LOG_2PI) * w4).sum() / (
+                w4.sum() * patches[0].numel()).clamp_min(1.0)
+            w2 = valid.to(means.dtype)[:, None]
+            kl = 0.5 * ((1 - means**2 - torch.exp(logvars) ** 2 + 2 * logvars) * w2).sum() / (
+                w2.sum() * means.shape[1]).clamp_min(1.0)
+            return -(ll + kl), {}
+        # vae_cnn, rs_vae
+        x = image(feats)
+        recon, (means, logvars) = model(x, **draw)
+        m4 = mask[:, None, None, :].to(x.dtype)
+        ll = ((-0.5 * (x - recon) ** 2 - 0.5 * vae.LOG_2PI) * m4).sum() / (
+            m4.sum() * x.shape[2]).clamp_min(1.0)
+        kl = 0.5 * (1 - means**2 - torch.exp(logvars) ** 2 + 2 * logvars).mean()
+        return -(ll + kl), {}
 
     return loss_fn
 
@@ -312,8 +421,6 @@ def main(argv=None):
     if args.data_parallel or args.expert_parallel > 1:
         raise NotImplementedError(f"--data_parallel and --expert_parallel are not yet ported "
                                   f"({PARALLEL_ITEM})")
-    if args.arch not in PORTED_ARCHS:
-        raise NotImplementedError(f"--arch {args.arch} is not yet ported ({CONV_ITEM})")
 
     import torch
 

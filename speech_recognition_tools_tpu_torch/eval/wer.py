@@ -1,6 +1,7 @@
-"""Word error rates (port of speech_recognition_tools_tpu/eval/wer.py:
-edit_distance_csid, wer_from_csid, score_hypotheses; sclite-style
-Levenshtein counts, WER = (S+I+D)*100/(C+S+D) as Kaldi's score.sh)."""
+"""Word and frame error rates (port of speech_recognition_tools_tpu/eval/wer.py:
+edit_distance_csid, wer_from_csid, score_hypotheses, parse_kaldi_per_utt,
+per_utt_fer; sclite-style Levenshtein counts, WER = (S+I+D)*100/(C+S+D) as
+Kaldi's score.sh)."""
 
 import numpy as np
 
@@ -51,3 +52,32 @@ def score_hypotheses(refs: dict, hyps: dict):
         per_utt[utt] = [wer_from_csid(c, s, i, d), float(c), float(s), float(i), float(d)]
         tc, ts, ti, td = tc + c, ts + s, ti + i, td + d
     return wer_from_csid(tc, ts, ti, td), per_utt
+
+
+def parse_kaldi_per_utt(path: str):
+    """Parse scoring_kaldi/wer_details/per_utt csid lines into
+    {utt: [wer, C, S, I, D]} (per_utt_wer.py:15-27)."""
+    wer_dict = {}
+    with open(path) as f:
+        for line in f:
+            if "csid" not in line:
+                continue
+            details = line.split()
+            c, s, i, d = (float(details[k]) for k in (2, 3, 4, 5))
+            wer_dict[details[0]] = [(s + i + d) * 100.0 / (c + s + d), c, s, i, d]
+    return wer_dict
+
+
+def per_utt_fer(post_dict: dict, ali_dict: dict):
+    """Frame error rate per utterance from posteriors against alignments
+    (per_utt_fer.py:40-47). As there, the errors are divided by the
+    *posterior* frame count even when the alignment's length differs."""
+    fer = {}
+    for utt, ali in ali_dict.items():
+        if utt not in post_dict:
+            continue
+        preds = np.argmax(post_dict[utt], axis=1)
+        n = min(len(preds), len(ali))
+        correct = float(np.sum(np.equal(preds[:n], np.asarray(ali)[:n])))
+        fer[utt] = (float(len(preds)) - correct) * 100.0 / float(len(preds))
+    return fer

@@ -31,13 +31,17 @@ optimizers.
 
 `zoo_from_jax(model, params)` and `zoo_to_jax(model, sd)` are the pair for
 every other model of the zoo (models/recurrent.py, apc.py, vae.py,
-curl.py): those modules carry flax's names, so the layout is read off the
-port module itself. A state_dict name maps to its flax path segment by
-segment, a GRU stack's `layers.{i}` becoming `gru_{i}`; a MaskedGRULayer is
-its flax GRUCell `cell` (as above), a Linear a Dense ([in, out] kernel), a
-MultiHeadAttention flax's MultiHeadDotProductAttention (query/key/value
-kernels (D, heads, hd), out kernel (heads, hd, D)), a LayerNorm its
-scale and bias. Both directions are exact and raise on a leaf left over.
+curl.py, cnn.py, modnet.py): those modules carry flax's names, so the
+layout is read off the port module itself. A state_dict name maps to its
+flax path segment by segment, a GRU stack's `layers.{i}` becoming
+`gru_{i}`; a MaskedGRULayer is its flax GRUCell `cell` (as above), a
+MaskedLSTMLayer its OptimizedLSTMCell `cell`, a Conv2d (or the
+ConvTranspose built on it) a Conv / ConvTranspose (HWIO kernel, (kh, kw,
+in, out), <-> (out, in, kh, kw), not flipped), a Conv1d a 1-D Conv, the
+rate-scale convs' `rates` and `scales` themselves, a Linear a Dense ([in,
+out] kernel), a MultiHeadAttention flax's MultiHeadDotProductAttention
+(query/key/value kernels (D, heads, hd), out kernel (heads, hd, D)), a
+LayerNorm its scale and bias. Both directions are exact and raise on a leaf left over.
 """
 
 import numpy as np
@@ -173,7 +177,8 @@ _KINDS = {
     # the out kernel (H, hd, D) <-> a Linear from the flat H * hd
     "heads_out": (lambda a, h: a.reshape(-1, a.shape[-1]).T,
                   lambda w, h: w.T.reshape(h, -1, w.shape[0])),
-    # a depthwise Conv kernel (k, 1, D) <-> a grouped Conv1d's (D, 1, k)
+    # a 1-D Conv kernel (k, in, out) <-> a Conv1d's (out, in, k); a
+    # depthwise one is (k, 1, D) <-> a grouped Conv1d's (D, 1, k)
     "depthwise": (lambda a, h: a.transpose(2, 1, 0), lambda w, h: w.transpose(2, 1, 0)),
 }
 
@@ -375,11 +380,16 @@ def _flax_path(name: str) -> tuple:
 
 
 def _zoo_layout(model) -> tuple:
-    """([(flax cell path, state_dict prefix)] of the GRU layers,
-    [(flax leaf path, state_dict name, kind, heads)] of every other leaf)."""
+    """([(flax cell path, state_dict prefix, cell kind)] of the GRU and LSTM
+    layers, [(flax leaf path, state_dict name, kind, heads)] of every other
+    leaf)."""
     from torch import nn
 
-    from speech_recognition_tools_tpu_torch.models.recurrent import MaskedGRULayer
+    from speech_recognition_tools_tpu_torch.models.flax_init import FlaxDrawn
+    from speech_recognition_tools_tpu_torch.models.recurrent import (
+        MaskedGRULayer,
+        MaskedLSTMLayer,
+    )
     from speech_recognition_tools_tpu_torch.models.transformer_asr import (
         LayerNorm,
         MultiHeadAttention,
@@ -389,7 +399,17 @@ def _zoo_layout(model) -> tuple:
     for name, m in model.named_modules():
         path = _flax_path(name)
         if isinstance(m, MaskedGRULayer):
-            grus.append((path + ("cell",), name))
+            grus.append((path + ("cell",), name, "gru"))
+        elif isinstance(m, MaskedLSTMLayer):
+            grus.append((path + ("cell",), name, "lstm"))
+        elif isinstance(m, (nn.Conv1d, nn.Conv2d)):
+            # Conv and ConvTranspose kernels (kh, kw, in, out) <-> (out, in, kh, kw)
+            kind = "conv" if isinstance(m, nn.Conv2d) else "depthwise"
+            rows += [(path + ("kernel",), f"{name}.weight", kind, None),
+                     (path + ("bias",), f"{name}.bias", "same", None)]
+        elif isinstance(m, FlaxDrawn):
+            rows += [(path + (leaf,), f"{name}.{leaf}".lstrip("."), "same", None)
+                     for leaf, _ in m.named_parameters(recurse=False)]
         elif isinstance(m, MultiHeadAttention):
             h = m.heads
             for part in ("query", "key", "value"):
@@ -413,9 +433,10 @@ def zoo_from_jax(model, params: dict) -> dict:
     grus, rows = _zoo_layout(model)
     leaves = _Leaves(params)
     sd = {}
-    for path, prefix in grus:
+    for path, prefix, cell_kind in grus:
         cell = _nest(leaves.subtree(*path))
-        for k, v in gru_cell_from_jax(cell).items():
+        from_jax = gru_cell_from_jax if cell_kind == "gru" else lstm_cell_from_jax
+        for k, v in from_jax(cell).items():
             sd[f"{prefix}.{k}"] = v
     for path, name, kind, h in rows:
         sd[name] = _t(_KINDS[kind][0](leaves.take(*path), h))
@@ -431,8 +452,9 @@ def zoo_to_jax(model, sd: dict) -> dict:
     optimizer's moments) -> the flax tree {"params": ...} of numpy arrays."""
     grus, rows = _zoo_layout(model)
     flat = {}
-    for path, prefix in grus:
-        for gate, leaf in gru_cell_to_jax(sd, prefix).items():
+    for path, prefix, cell_kind in grus:
+        to_jax = gru_cell_to_jax if cell_kind == "gru" else lstm_cell_to_jax
+        for gate, leaf in to_jax(sd, prefix).items():
             for k, v in leaf.items():
                 flat[path + (gate, k)] = v
     for path, name, kind, h in rows:

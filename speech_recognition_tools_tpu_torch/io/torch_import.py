@@ -4,17 +4,15 @@ The port's own copy of speech_recognition_tools_tpu/io/torch_import.py:
 host code (numpy and torch.load), every family's key mapping unchanged,
 the same flax trees, and checkpoints written with the port's
 train/checkpoint.py, which gives the JAX package's bytes and config.json.
-The port's models load every recurrent family: those of train_am's
-PORTED_ARCHS (nnetRNN, the feedforward and linear stacks, the multitask
-AEs, the VAEs, ARVAE, the CURL models, multimod and the frozen-encoder
-vae_encoded / curl_encoded pairs) in dump_outputs, tandem_feats and
-pm_score_cli, the ESPnet e2e transformer (recog_e2e) and the ESPnet LM
-with either cell (recog_e2e --lm_dir, decode_wfst --rescore_lm_dir). A
-checkpoint of the conv families (cnn, cldnn, vae_cnn, vae_cnn_pool,
-rs_vae, modnet, modnet_sigmoid) is written all the same, for the JAX
-package; the port's dump_outputs raises NotImplementedError on it, naming
-ROADMAP Queue 1 item 1 (the rest of the model zoo, its conv half). The
-model names below are the JAX package's.
+The port's models load every family: the recurrent ones (nnetRNN, the
+feedforward and linear stacks, the multitask AEs, the VAEs, ARVAE, the
+CURL models, multimod and the frozen-encoder vae_encoded / curl_encoded
+pairs) and the conv ones (cnn, cldnn, vae_cnn, vae_cnn_pool, rs_vae,
+modnet, modnet_sigmoid) in dump_outputs (and the recurrent ones in
+tandem_feats, pm_score_cli, adapt_am and lifelong_decode), the ESPnet e2e
+transformer (recog_e2e) and the ESPnet LM with either cell (recog_e2e
+--lm_dir, decode_wfst --rescore_lm_dir). The model names below are the
+JAX package's.
 
 The notes that follow are the JAX module's.
 

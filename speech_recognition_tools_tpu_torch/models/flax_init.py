@@ -49,6 +49,28 @@ def ones_(param: torch.Tensor) -> None:
         param.fill_(1.0)
 
 
+def uniform_(param: torch.Tensor, generator=None) -> None:
+    """flax's initializers.uniform(1.0): U[0, 1)."""
+    _fill(param, torch.rand(param.shape, generator=generator))
+
+
+def conv_(conv, generator=None) -> None:
+    """flax.linen.Conv's (and ConvTranspose's) defaults on a torch conv of
+    weight (out, in / groups, *kernel): lecun_normal over the fan-in
+    in / groups x kernel size, zero bias."""
+    lecun_normal_(conv.weight, conv.weight[0].numel(), generator)
+    zeros_(conv.bias)
+
+
+class FlaxDrawn(torch.nn.Module):
+    """A module whose parameters are not Linears, convs or recurrent
+    layers; `reset_parameters(generator)` draws them as flax's `init`
+    does (models/recurrent.py::flax_reset_ calls it)."""
+
+    def reset_parameters(self, generator=None):
+        raise NotImplementedError
+
+
 def dense_(linear: torch.nn.Linear, generator=None) -> None:
     """flax.linen.Dense's defaults on a Linear: lecun_normal, zero bias."""
     lecun_normal_(linear.weight, linear.in_features, generator)

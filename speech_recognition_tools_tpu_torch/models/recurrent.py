@@ -221,13 +221,16 @@ class GRUStack(nn.Module):
 
 
 def flax_reset_(module: nn.Module, generator: torch.Generator | None = None) -> None:
-    """Draw every Linear and recurrent layer of `module` as flax's `init`
-    draws it, from `generator` (a CPU torch.Generator), in module order.
-    LayerNorms keep their fresh ones and zeros."""
+    """Draw every Linear, conv and recurrent layer of `module` (and every
+    flax_init.FlaxDrawn) as flax's `init` draws it, from `generator` (a
+    CPU torch.Generator), in module order. LayerNorms keep their fresh ones
+    and zeros."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             flax_init.dense_(m, generator)
-        elif isinstance(m, (MaskedGRULayer, MaskedLSTMLayer)):
+        elif isinstance(m, (nn.Conv1d, nn.Conv2d)):
+            flax_init.conv_(m, generator)
+        elif isinstance(m, (MaskedGRULayer, MaskedLSTMLayer, flax_init.FlaxDrawn)):
             m.reset_parameters(generator)
 
 

@@ -5,10 +5,10 @@ TransformerASRConfig, chunk_attention_mask, posenc_host, _embed_scale,
 _MHABlock, _ConformerBlock, Conv2dSubsampling, TransformerEncoder (either
 block type), TransformerDecoder (full-prefix and KV-cached decode modes),
 TransformerASR (`forward`, `encode`, `decode_step`, `decode_init_cache`,
-`decode_incremental`),
-greedy_ctc, and the training half: the joint CTC/attention loss
-(`ctc_loss`, `joint_loss`, `asr_loss`), `noam_schedule` and
-`average_checkpoints`. The reference's headline model is ESPnet's
+`decode_incremental`), greedy_ctc, the training half: the joint
+CTC/attention loss (`ctc_loss`, `joint_loss`, `asr_loss`),
+`noam_schedule` and `average_checkpoints`, and the continual-learning
+decode `cl_decode`. The reference's headline model is ESPnet's
 e2e_asr_transformer (conf/train.yaml: 12 encoder / 6 decoder layers, adim
 256, 4 heads, FFN 2048, conv2d subsampling, mtlalpha 0.3, label smoothing
 0.1).
@@ -743,3 +743,50 @@ def average_checkpoints(param_list):
     average_checkpoints equivalent)."""
     n = len(param_list)
     return {k: sum(p[k] for p in param_list) / n for k in param_list[0]}
+
+
+@torch.no_grad()
+def cl_decode(models, pm_scores, feats, lengths, cfg: TransformerASRConfig, beam_size: int = 10,
+              max_len: int = 100, beta: float = 300.0):
+    """Continual-learning decode (the JAX cl_decode; asr_recog --api cl,
+    run_cl_2stream.sh:250-254) of one utterance: task weights
+    w = exp(beta * pm) / sum from the PM scores, then one beam search whose
+    step scores are sum_k w_k log_softmax(model_k's full-prefix decoder
+    logits). A finished beam can only append eos (at no cost); the ranking
+    is jax.lax.top_k's (decode/beam_jit.py::_top_k), and the search stops
+    once every beam has finished. As in the JAX function, zip pairs the
+    weights with the models, so a shorter `pm_scores` drops the models past
+    its end. feats (1, T, D), lengths (1,) -> the best hypothesis' tokens,
+    without sos and eos."""
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import _top_k
+
+    w = np.exp(beta * np.asarray(pm_scores, np.float64))
+    w = w / w.sum()
+    K, V, dev = beam_size, cfg.vocab_size, feats.device
+    mem_b = []
+    for model in models:
+        memory, enc_len, _ = model.encode(feats, lengths)
+        mem_b.append((model, memory.repeat_interleave(K, 0), enc_len.repeat_interleave(K, 0)))
+    tokens = torch.full((K, max_len + 1), -1, dtype=torch.long, device=dev)
+    tokens[:, 0] = cfg.sos_id
+    scores = torch.full((K,), float("-inf"), device=dev)
+    scores[0] = 0.0
+    finished = torch.zeros(K, dtype=torch.bool, device=dev)
+    eos_only = torch.full((K, V), float("-inf"), device=dev)
+    eos_only[:, cfg.eos_id] = 0.0
+    for step in range(max_len):
+        logp = 0.0
+        for wi, (model, memory, enc_len) in zip(w, mem_b):
+            logits = model.decode_step(tokens[:, : step + 1], memory, enc_len)[:, step]
+            logp = logp + float(wi) * F.log_softmax(logits.float(), dim=-1)
+        logp = torch.where(finished[:, None], eos_only, logp)
+        top_scores, top_idx = _top_k((scores[:, None] + logp).reshape(1, -1), K)
+        beam_idx, tok_idx = top_idx[0] // V, top_idx[0] % V
+        tokens = tokens[beam_idx]
+        tokens[:, step + 1] = tok_idx
+        scores = top_scores[0]
+        finished = finished[beam_idx] | (tok_idx == cfg.eos_id)
+        if bool(finished.all()):
+            break
+    best = int(torch.argmax(scores))
+    return [t for t in tokens[best, 1:].tolist() if t >= 0 and t != cfg.eos_id]

@@ -246,8 +246,9 @@ def test_export_loglikes_ark_is_dump_outputs(am, tmp_path):
 
 
 def test_dump_outputs_refuses_what_is_not_ported(am, tmp_path):
-    import json
-    import shutil
+    import argparse
+
+    from speech_recognition_tools_tpu.train import checkpoint as jckpt
 
     with pytest.raises(IndexError):
         dump_outputs.main([am["store"], am["egs"], str(tmp_path / "o"), "--layer", "1",
@@ -255,15 +256,18 @@ def test_dump_outputs_refuses_what_is_not_ported(am, tmp_path):
     with pytest.raises(FileNotFoundError):  # --multi_egs_dirs is ported: "x" is no egs dir
         dump_outputs.main([am["store"], am["egs"], str(tmp_path / "o"),
                            "--multi_egs_dirs", "x", "--device", "cpu"])
+    # the conv half is ported: a cnn checkpoint (the JAX CLI's) dumps one
+    # row of logits per frame, as the JAX model computes them
     other = str(tmp_path / "cnn")
-    shutil.copytree(os.path.join(am["store"], "final"), os.path.join(other, "final"))
-    cfg_path = os.path.join(other, "final", "config.json")
-    with open(cfg_path) as f:
-        cfg = json.load(f)
-    with open(cfg_path, "w") as f:
-        json.dump(dict(cfg, arch="cnn"), f)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        dump_outputs.main([other, am["egs"], str(tmp_path / "o"), "--device", "cpu"])
+    jtrain_am.main([am["egs"], other, "--arch", "cnn", "--hidden_dim", "16", "--epochs", "0"])
+    got = dump_outputs.main([other, am["egs"], str(tmp_path / "o"), "--device", "cpu"])
+    payload, cfg = jckpt.load_checkpoint(os.path.join(other, "final"))
+    jm = jtrain_am.build_model(argparse.Namespace(**cfg), cfg["feature_dim"], CLASSES)
+    for b in jegs.iter_egs_batches(am["egs"], 32):
+        want = np.asarray(jm.apply(payload["params"], np.swapaxes(b["feats"], 1, 2)[:, None]))
+        for i, k in enumerate(b["keys"]):
+            np.testing.assert_allclose(got[k], want[i, : b["lengths"][i]], rtol=1e-5,
+                                       atol=1e-6)
 
 
 # ------------------------------------------------------------------ viterbi

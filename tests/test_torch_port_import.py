@@ -9,9 +9,9 @@ writes to each other byte for byte. Then the families the port's models
 load run in them: the ESPnet e2e transformer in recog_e2e's `_load`, the
 ESPnet LM (LSTM and GRU) in `_load_lm`, and the reference nnetRNN in
 `dump_outputs`, each against a torch reconstruction of the source model;
-the `--egs` data import writes the JAX CLI's egs directory; and a family
-the port has no model for imports, then raises NotImplementedError in the
-port's loader, naming its ROADMAP item.
+the `--egs` data import writes the JAX CLI's egs directory; and the conv
+families cnn and cldnn load in `dump_outputs` as the JAX model computes
+them.
 """
 
 import os
@@ -437,16 +437,36 @@ def test_egs_import_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("family", ["cnn", "cldnn"])
 def test_unloadable_family_imports_then_raises_in_the_port(family, tmp_path):
-    """A family the port has no model for yet (the conv half) is imported
-    all the same (the JAX package's files); the port's dump_outputs then
-    raises NotImplementedError naming ROADMAP Queue 1 item 1 (the model
-    zoo). The recurrent families load: tests/test_torch_port_train_am_archs.py."""
+    """Named for the refusal it held until the conv half was ported: a cnn
+    or cldnn .model dict, imported by the port's CLI, now loads in the
+    port's dump_outputs, whose logits on every frame equal the JAX model's
+    on the JAX CLI's import of the same file (within 1e-5 of their scale;
+    the other conv families: tests/test_torch_port_conv_zoo.py)."""
+    import argparse
+
+    import jax.numpy as jnp
+
+    from speech_recognition_tools_tpu.cli import train_am as jtrain
+    from speech_recognition_tools_tpu.train import checkpoint as jckpt
+
     sd, hyper, _ = _build(family)
     src = str(tmp_path / "ref.model")
     torch.save({"model_state_dict": sd, **hyper}, src)
-    dest = str(tmp_path / "imported")
-    tcli.main([src, dest])
-    egs = tegs.build_egs(iter([("u0", np.zeros((9, D), np.float32))]), str(tmp_path / "egs"))
-    with pytest.raises(NotImplementedError, match="item 1: the rest of the model zoo"):
-        tdump.main([dest, egs, str(tmp_path / "o"), "--device", "cpu"])
-
+    tcli.main([src, str(tmp_path / "imported")])
+    jcli.main([src, str(tmp_path / "jax")])
+    rs = np.random.RandomState(6)
+    lens = (17, 9, 12)
+    utts = [(f"u{i}", rs.randn(n, D).astype(np.float32)) for i, n in enumerate(lens)]
+    egs = tegs.build_egs(iter(utts), str(tmp_path / "egs"))
+    got = tdump.main([str(tmp_path / "imported"), egs, str(tmp_path / "o"), "--device", "cpu"])
+    payload, cfg = jckpt.load_checkpoint(jckpt.latest_checkpoint(str(tmp_path / "jax")))
+    model = jtrain.build_model(argparse.Namespace(**cfg), cfg["feature_dim"], cfg["num_classes"])
+    for b in tegs.iter_egs_batches(egs, 32):
+        x = jnp.asarray(np.swapaxes(b["feats"], 1, 2)[:, None])
+        args = (x,) if family == "cnn" else (x, jnp.asarray(b["lengths"]))
+        want = np.asarray(model.apply(payload["params"], *args))
+        scale = np.abs(want).max()
+        for i, key in enumerate(b["keys"]):
+            n = int(b["lengths"][i])
+            assert got[key].shape == (n, C)
+            assert np.abs(got[key] - want[i, :n]).max() <= 1e-5 * scale

@@ -91,8 +91,9 @@ def test_import_checks_cover_the_serving_modules():
     serving path's modules, the LM-training stage's, the hybrid decode
     end's, the MFCC / mel front-ends', the modulation spectrum's and the
     high-precision FDLP and incremental decoder's, the checkpoint
-    importer's, and the recurrent zoo's and the PM stage's are among what
-    they walk."""
+    importer's, the recurrent zoo's and the PM stage's, and the conv zoo's
+    and the adaptation, lifelong-decoding and continual-learning decode's
+    are among what they walk."""
     mods = set(_port_modules())
     for m in ("dsp.streaming", "infer.streaming_asr", "eval.wer", "cli.recog_e2e",
               "cli.serve", "cli.serve_client", "cli.transcribe",
@@ -107,7 +108,9 @@ def test_import_checks_cover_the_serving_modules():
               "cli.compute_fdlp_spectrogram", "models.transformer_asr",
               "decode.beam_jit", "io.torch_import", "cli.import_torch_ckpt",
               "models.apc", "models.vae", "models.curl", "cli.train_am", "cli.tandem_feats",
-              "cli.pm_score_cli", "infer.pm_score", "infer.mmeasure", "train.optim"):
+              "cli.pm_score_cli", "infer.pm_score", "infer.mmeasure", "train.optim",
+              "models.cnn", "models.modnet", "infer.adapt", "infer.lifelong", "cli.adapt_am",
+              "cli.lifelong_decode"):
         assert f"speech_recognition_tools_tpu_torch.{m}" in mods, m
 
 

@@ -2,7 +2,8 @@
 (make_server on real sockets, concurrent streams, endpointing, the wire
 protocol, resolve_frontend), `cli/serve_client.py`, `cli/transcribe.py`
 and `cli/recog_e2e.py` (host search, --jit_decode, --streaming, RNNLM
-fusion, --ref_text), all on model directories the JAX package wrote.
+fusion, --ref_text, a comma-separated model_dir, --api cl), all on model
+directories the JAX package wrote.
 
 The same directory, audio and egs go to both packages; hypotheses and
 output files must be identical. The JAX side runs on the CPU with the
@@ -353,9 +354,73 @@ def test_recog_e2e_streaming_beam_equals_offline(model_dir, tmp_path, capsys):
     assert sum("[rescored partial @push" in ln for ln in printed) >= 6
 
 
-@pytest.mark.parametrize("extra", [["--api", "cl"], ["--word_lm_dir", "x"],
-                                   ["--ring_attention", "2"],
-                                   ["--api", "cl", "--compute_dtype", "bfloat16"]])
+def test_recog_e2e_comma_separated_model_dir_matches_jax(model_dir, tmp_path):
+    """model_dir "d,d": both packages load every directory and, under
+    --api v1, decode with the first (here the batched search over the 3
+    utterances); out_text identical (the repair of
+    ROADMAP Queue 3's first fault, where the port passed "d,d" whole to its
+    loader)."""
+    d, _, _ = model_dir
+    egs, _ = _egs(str(tmp_path))
+    outs = []
+    for main, extra in ((jrecog.main, []), (trecog.main, ["--device", "cpu"])):
+        out = str(tmp_path / f"{len(outs)}.txt")
+        main([f"{d},{d}", egs, out, "--beam_size", "2", "--max_len", "5", "--jit_decode",
+              "--batch_size", "3", *extra])
+        with open(out) as f:
+            outs.append(f.read())
+    assert outs[0] == outs[1] and len(outs[0].splitlines()) == 3
+
+
+@pytest.fixture(scope="module")
+def cl_dirs(model_dir, tmp_path_factory):
+    """Two more model directories of model_dir's geometry and vocabulary
+    (seeds 11 and 12), their decoder output kernels scaled by 4 so that the
+    fused scores hold no near ties that bfloat16 rounding would decide."""
+    d, _, vocab = model_dir
+    root = tmp_path_factory.mktemp("cl")
+    with open(os.path.join(d, "final_avg", "config.json")) as f:
+        hyper = {k: v for k, v in json.load(f).items() if k != "extra"}
+    cfg = jtasr.TransformerASRConfig(**{k: v for k, v in hyper.items()
+                                        if k not in ("conv_kernel",)}, dropout=0.0)
+    dirs = []
+    for seed in (11, 12):
+        params = jtasr.TransformerASR(cfg).init(
+            {"params": jax.random.key(seed)}, jnp.zeros((1, 16, D), jnp.float32),
+            jnp.asarray([16]), jnp.zeros((1, 4), jnp.int32))
+        rs = np.random.RandomState(seed)
+        params = jax.tree.map(
+            lambda a: (np.asarray(a) + 0.1 * rs.randn(*a.shape)).astype(np.float32), params)
+        params["params"]["decoder"]["output"]["kernel"] *= 4.0
+        out = str(root / f"m{seed}")
+        os.makedirs(out)
+        jtext.save_vocab(vocab, os.path.join(out, "vocab.json"))
+        jckpt.save_checkpoint(out, "final_avg", params, hyper)
+        dirs.append(out)
+    return ",".join(dirs)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recog_e2e_api_cl_matches_jax(cl_dirs, tmp_path, dtype):
+    """--api cl over two model directories with --pm_scores 0.002,0.001
+    (task weights exp(300 pm) / sum: 0.57, 0.43), beam 2, max_len 6,
+    --jit_decode --batch_size 2 (cl decodes one utterance at a time all the
+    same): out_text identical to the JAX CLI's, in float32 and in
+    bfloat16."""
+    egs, _ = _egs(str(tmp_path), seed=9)
+    outs = []
+    for main, extra in ((jrecog.main, []), (trecog.main, ["--device", "cpu"])):
+        out = str(tmp_path / f"{len(outs)}.txt")
+        main([cl_dirs, egs, out, "--api", "cl", "--pm_scores", "0.002,0.001", "--beam_size",
+              "2", "--max_len", "6", "--jit_decode", "--batch_size", "2", "--compute_dtype",
+              dtype, *extra])
+        with open(out) as f:
+            outs.append(f.read())
+    assert outs[0] == outs[1] and len(outs[0].splitlines()) == 3
+
+
+@pytest.mark.parametrize("extra", [["--word_lm_dir", "x"], ["--ring_attention", "2"]],
+                         ids=["extra1", "extra2"])
 def test_recog_e2e_unported_flags_raise(model_dir, tmp_path, extra):
     d, _, _ = model_dir
     with pytest.raises(NotImplementedError):

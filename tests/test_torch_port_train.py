@@ -505,7 +505,8 @@ def _np(t):
 def test_train_am_main_on_a_tiny_egs_dir(tmp_path):
     """train_am.main --arch rnn on the CPU: per-epoch and final checkpoints
     the JAX load_checkpoint restores, finite losses, resume from the newest
-    epoch; the unported archs and flags raise."""
+    epoch; the unported flags raise (every arch is ported: the conv half's
+    in tests/test_torch_port_conv_zoo.py)."""
     utts = _utts(n=9)
     egs = str(tmp_path / "egs")
     tegs.build_egs(iter((k, f) for k, f, _ in utts), egs, {k: lab for k, _, lab in utts},
@@ -528,6 +529,6 @@ def test_train_am_main_on_a_tiny_egs_dir(tmp_path):
     st3 = train_am.main(argv + ["--epochs", "3"])
     assert st3.epoch == 3 and len(st3.history) == 1
     assert os.path.isdir(os.path.join(store, "epoch_3"))
-    for bad in (["--arch", "cnn"], ["--data_parallel"], ["--expert_parallel", "2"]):
+    for bad in (["--data_parallel"], ["--expert_parallel", "2"]):
         with pytest.raises(NotImplementedError):
             train_am.main(argv + ["--epochs", "4"] + bad)

@@ -26,7 +26,7 @@ bn 4, 2 components, 6-dim features, 5 classes (the transformer VAE:
 CPU; the JAX side with the conftest's x64.
 """
 
-import json
+import argparse
 import os
 import pickle
 import shutil
@@ -289,23 +289,32 @@ def test_tandem_feats_match_jax(tandem_type, data, tmp_path):
 
 @pytest.mark.parametrize("arch", CONV_ARCHS)
 def test_conv_half_still_raises(arch, data, tmp_path):
-    """The conv half keeps raising NotImplementedError naming its ROADMAP
-    item, in train_am and in dump_outputs; so do --data_parallel and
-    --expert_parallel (item 5)."""
-    with pytest.raises(NotImplementedError, match="item 1.*conv half"):
-        ttrain.main([data["egs"], str(tmp_path / "x"), "--arch", arch, *TINY, "--epochs", "1",
-                     "--device", "cpu"])
-    store = str(tmp_path / "rnn")
-    ttrain.main([data["egs"], store, "--arch", "rnn", *TINY, "--epochs", "1", "--device",
-                 "cpu"])
-    cfg_path = os.path.join(store, "final", "config.json")
-    with open(cfg_path) as f:
-        cfg = json.load(f)
-    with open(cfg_path, "w") as f:
-        json.dump(dict(cfg, arch=arch), f)
-    shutil.rmtree(os.path.join(store, "epoch_1"))
-    with pytest.raises(NotImplementedError, match="item 1.*conv half"):
-        tdump.main([store, data["egs"], str(tmp_path / "o"), "--device", "cpu"])
+    """Named for the refusal it held until the conv half was ported. Each
+    conv arch now trains for one epoch in the port (--patch_width 5: these
+    utterances are 8-20 frames) into a checkpoint that the JAX package
+    restores into its own model's template, and dump_outputs writes one
+    row per frame of every utterance (tests/test_torch_port_conv_zoo.py
+    holds both to the JAX package). --data_parallel and --expert_parallel
+    still raise NotImplementedError naming item 5."""
+    store = str(tmp_path / arch)
+    st = ttrain.main([data["egs"], store, "--arch", arch, *TINY, "--patch_width", "5",
+                      "--epochs", "1", "--device", "cpu"])
+    assert len(st.history) == 1
+    payload, cfg = jckpt.load_checkpoint(os.path.join(store, "final"))
+    model = jtrain.build_model(argparse.Namespace(**cfg), D, C)
+    x = jnp.zeros((2, 1, D, 5 if arch in ttrain.PATCH_ARCHS else 12), jnp.float32)
+    extra = (jnp.array([12, 7]),) if arch == "cldnn" else ()
+    rngs = {"params": jax.random.key(0), "sample": jax.random.key(1),
+            "gumbel": jax.random.key(2)}
+    template = model.init(rngs, x, *extra)
+    restored, _ = jckpt.load_checkpoint(os.path.join(store, "final"),
+                                        template={"params": template})
+    assert jax.tree.structure(restored["params"]) == jax.tree.structure(template)
+    assert jax.tree.map(np.shape, restored["params"]) == jax.tree.map(np.shape, template)
+    got = tdump.main([store, data["egs"], str(tmp_path / "o"), "--device", "cpu"])
+    _, utts = tegs.load_egs(data["egs"])
+    width = 4 if arch in ("vae_cnn", "vae_cnn_pool", "rs_vae") else C
+    assert {k: v.shape for k, v in got.items()} == {k: (len(f), width) for k, f, _ in utts}
     for bad in (["--data_parallel"], ["--expert_parallel", "2"]):
         with pytest.raises(NotImplementedError, match="item 5"):
             ttrain.main([data["egs"], str(tmp_path / "y"), *TINY, *bad, "--device", "cpu"])
