@@ -213,9 +213,28 @@ exits non-zero. Phases:
      phase 7's models (CL_PM_SCORES, beam 10, CL_MAX_LEN) on phase 7's egs:
      ms a step, hypotheses card against CPU, and a bf16 run whose best
      hypotheses' fused scores are finite;
-  15. one JSON line describing every kernel of the port (`launches` is the
+  15. (a) int8 serving on phase 8's directory: quantized_bytes of the
+     encoder and the device memory of the float32 and int8 models;
+     make_server(int8=True) with 8 concurrent unpaced socket streams, each
+     final held to an int8 OnlineASRPipeline (near-tie rule of phase 8),
+     K1 counted; transcribe --int8 on two wavs; the int8 streamed memory
+     card vs CPU on the same codes (INT8_MEM_ATOL) and int8 against the
+     float32 offline chunked encode (INT8_VS_F32_ATOL, CTC argmax
+     agreement); one round int8 against float32, in turns; the same for
+     phase 10 (b)'s conformer over 5 streams. (b) the look-ahead word LM:
+     a seeded 65,000-word lexicon in phase 5's letters, train_lm.main
+     --unit word at its defaults for one epoch (first-step loss card vs CPU,
+     1e-5), recog_e2e.main --word_lm_dir --word_lm_dict with phase 5's model
+     on 8 of phase 3's utterances (FDLP on K1, counted), offline and
+     --streaming, hypotheses card vs CPU on 2, ms a search step by part and
+     the LRU hit rate. (c) forced alignment at timit_hybrid's front-end:
+     phase 4's utterances through FDLP (K1, counted, then held to its plain
+     version) and CMVN, a seeded 200-word lexicon over 48 phones,
+     force_align.main at its defaults with ALIGN_FLAGS, one batch's DP card
+     vs CPU, ali_utils convert and combine;
+  16. one JSON line describing every kernel of the port (`launches` is the
      hybrid main path's count, `launches_by_path` each path's);
-  16. the run's time, the card's name and power limit again, then the last
+  17. the run's time, the card's name and power limit again, then the last
      line: {"ok": true, "device": {...}}.
 """
 
@@ -449,6 +468,26 @@ LIFELONG_REL = 1e-4
 # weights exp(300 pm) / sum = 0.953, 0.047), beam 10; searches on random
 # weights never end on eos, so CL_MAX_LEN sets the phase's time
 CL_PM_SCORES, CL_MAX_LEN, CL_CPU_UTTS = "0.02,0.01", 12, 2
+# phase 15 (a): int8 serving on phase 8's and phase 10 (b)'s directories: the
+# int8 streamed memory card vs CPU on the same codes (phase 8's float32
+# limit), and int8 against the float32 offline chunked encode
+INT8_MEM_ATOL = SERVE_MEM_ATOL
+# ~4x the first readings on the H100 (max|diff| 7.3e-2 transformer, 1.6e-1
+# conformer; CTC argmax agreement 97.6% and 99.4%; PERF.md §6)
+INT8_VS_F32_ATOL, INT8_CTC_AGREE = 0.65, 0.9
+INT8_CONF_STREAMS = 5
+# phase 15 (b): a word LM over the reference's lm_vocabsize (65,000,
+# e2e/wsj/run_fdlp_e1.sh:39, <eos> and <unk> included), transcripts of 8-16
+# words, phase 5's model on 8 of phase 3's utterances, beam 10
+WORDLM_VOCAB = 65000
+WORDLM_TEXT_WORDS = (8, 17)
+WORDLM_UTTS, WORDLM_MAX_LEN, WORDLM_CPU_UTTS = 8, 50, 2
+# phase 15 (c): TIMIT's phone set size, a seeded 200-word lexicon, and the
+# Kaldi topology tier (3-state phones, 5-state silence, word-position
+# silence) at force_align's CLI defaults otherwise
+ALIGN_PHONES, ALIGN_WORDS = 48, 200
+ALIGN_FLAGS = ["--states_per_phone", "3", "--silence_phone", "0", "--silence_states", "5",
+               "--wpd_silence"]
 
 # (order, coeff_num) of the front-ends in recipes/configs: wsj/chime4/
 # conformer e2e, timit_hybrid, reverb
@@ -3731,6 +3770,593 @@ def cl_phase(e2e, dev, tmp):
         + f"; phase 14 (d) took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 15
+
+
+def _k1_on_path(tag, r, order, lim, tol, rel):
+    """K1 against its plain version on a path's own lags r (P, order+2):
+    the agreement (asserted within tol / rel, cep_agreement's measures),
+    kernel ms (CUDA-graph replay), plain ms and the bound, logged."""
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import (
+        lpc_cepstra,
+        lpc_cepstra_reference,
+    )
+
+    got = lpc_cepstra(r, order, lim)
+    ref = lpc_cepstra_reference(r, order, lim)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all(), tag
+    err, t_need, worst = cep_agreement(f"{tag} lags P={r.shape[0]}", got, ref)
+    assert t_need <= tol and worst <= rel, (tag, t_need, worst)
+    ms = graph_ms(lambda: lpc_cepstra(r, order, lim))
+    plain = cuda_ms(lambda: lpc_cepstra_reference(r, order, lim), reps=1, repeats=3)
+    bound, by = k1_bound_ms(r.shape[0], order, lim)
+    log(f"[k1] {tag} lags P={r.shape[0]} order={order} lim={lim}: max|kernel - plain|="
+        f"{err:.3e} kernel_ms={ms:.4f} plain_ms={plain:.3f} bound_ms={bound:.5f} ({by})")
+    return err
+
+
+def _int8_rounds(model, S, idim, rng, dev, tag, profile):
+    """The batched encoder step at S full rows of idim-wide features, 10
+    rounds: (ms a round wall, and with `profile` ms device busy a round and
+    device activities a round, else or without device time None)."""
+    from speech_recognition_tools_tpu_torch.infer.streaming_asr import StreamBatcher, _posenc_rows
+
+    cfg = model.cfg
+    sb = StreamBatcher(model, max_streams=S)
+    chunk = cfg.attn_chunk
+    xs = torch.as_tensor(rng.standard_normal((S, 4 * chunk + 3, idim)).astype(np.float32),
+                         device=dev)
+    pe = torch.as_tensor(np.stack([_posenc_rows(64, chunk, cfg.adim)] * S), device=dev)
+    nv = torch.full((S,), chunk, device=dev)
+    up = torch.ones((S,), dtype=torch.bool, device=dev)
+
+    def rounds():
+        for _ in range(10):
+            _, ctc, sb.caches = sb.step(xs, pe, nv, up, sb.caches)
+        return ctc.cpu()
+
+    t, _ = wall_s(rounds, repeats=2)
+    prof = profile and device_breakdown(f"{tag}, 10 batched rounds of {S} streams", rounds,
+                                        top=4)
+    if not prof:
+        return 1e3 * t / 10, None, None
+    return 1e3 * t / 10, prof[1] / 10 / 1e3, prof[2] / 10
+
+
+def _int8_vs_f32(q_model, f_model, feats, nfr, mean, std, dev):
+    """int8 against float32, offline chunked encode of the normalised
+    utterances: (max |memory diff| over valid frames, CTC argmax agreement)."""
+    f = ((feats - mean) / std) * (torch.arange(feats.shape[1], device=feats.device)[None, :, None]
+                                 < nfr[:, None, None])
+    with torch.no_grad():
+        mq, n, cq = q_model.encode(f.to(dev), nfr.to(dev))
+        mf, _, cf = f_model.encode(f.to(dev), nfr.to(dev))
+    valid = torch.arange(mq.shape[1], device=dev)[None, :] < n[:, None]
+    diff = (mq - mf).abs()[valid].max().item()
+    agree = (cq.argmax(-1) == cf.argmax(-1))[valid].float().mean().item()
+    return diff, agree
+
+
+def int8_phase(x, lens, fdlp_cfg, feats, nfr, rng, dev, tmp):
+    """Phase 15 (a): int8 serving on phase 8's wsj_fdlp_e2e model directory
+    (12 / 6 layers, adim 256, FFN 2048, attn_chunk 16 / left 4, serving.json,
+    CMVN) and phase 10 (b)'s conformer directory. `feats`, `nfr` are phase
+    3's batch features. Returns K1's launches over the int8 served streams,
+    the int8 transcribe CLI and the int8 conformer pipelines."""
+    from speech_recognition_tools_tpu_torch.cli import recog_e2e, serve, transcribe
+    from speech_recognition_tools_tpu_torch.dsp.streaming import StreamingFdlp
+    from speech_recognition_tools_tpu_torch.infer.quantize import (
+        quantize_encoder,
+        quantized_bytes,
+    )
+    from speech_recognition_tools_tpu_torch.infer.streaming_asr import (
+        OnlineASRPipeline,
+        StreamBatcher,
+        StreamingRecognizer,
+    )
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import lpc_cepstra
+
+    t_phase = time.perf_counter()
+    model_dir = os.path.join(tmp, "serve_am")
+
+    def load(int8, device=dev, d=model_dir):
+        """(model, the device memory it took: 0 on the CPU)."""
+        card = str(device) != "cpu"
+        if card:
+            torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated() if card else 0
+        m, _, _ = recog_e2e._load(d, "final_avg", device=device)
+        if int8:
+            quantize_encoder(m)
+        return m, (torch.cuda.memory_allocated() - before) if card else 0
+
+    f_model, f_bytes = load(False)
+    q_model, q_bytes = load(True)
+    qb, fb = quantized_bytes(q_model.encoder)
+    n_q = sum(t.numel() for t in q_model.encoder.state_dict().values() if t.dtype == torch.int8)
+    blob = np.load(os.path.join(model_dir, "cmvn.npz"))
+    mean = torch.as_tensor(blob["mean"], device=feats.device)
+    std = torch.as_tensor(blob["std"], device=feats.device)
+
+    # ---- the main path: make_server(int8=True), 8 concurrent socket streams ----
+    S = SERVE_STREAMS
+    step = int(SERVE_PUSH_S * fdlp_cfg.srate)
+    sigs = [x[b, : int(lens[b])] for b in range(S)]
+    pipe = OnlineASRPipeline.from_model_dir(model_dir, int8=True, device=dev)
+    server, port = serve.make_server(model_dir, max_streams=S, defer_s=SERVE_DEFER_S, int8=True,
+                                     device=dev)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        results = [None] * S
+
+        def run(i):
+            results[i] = _serve_client(port, sigs[i], step)
+
+        lpc_cepstra.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(S)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        t_served = max(r["t_end"] for r in results) - t0
+        torch.cuda.synchronize()
+        serve_launches = lpc_cepstra.launches
+        rounds = server.service.batcher.rounds
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert serve_launches > 0, "the int8 serving path did not launch K1"
+    mismatched = 0
+    for sig, res in zip(sigs, results):
+        want, rows = _pipeline_run(pipe, sig, step)
+        fin = res["final"]
+        assert fin["frames"] == rows.shape[0] and np.isfinite(rows).all()
+        if fin["tokens"] != want:
+            mismatched += 1
+            assert _ctc_near_ties(rows) > 0, (fin["tokens"], want)
+
+    # ---- transcribe --int8 on phase 8's two wavs ----
+    wavs = [os.path.join(tmp, f"serve_utt{b}.wav") for b in range(2)]
+    out = os.path.join(tmp, "int8_transcribe.txt")
+    lpc_cepstra.launches = 0
+    transcribe.main([model_dir, *wavs, "--int8", "--out", out, "--device", str(dev)])
+    transcribe_launches = lpc_cepstra.launches
+    assert transcribe_launches > 0, "transcribe --int8 did not launch K1"
+    with open(out) as fh:
+        lines = fh.read().splitlines()
+    assert len(lines) == 2
+    for b, line in enumerate(lines):
+        want, rows = _pipeline_run(pipe, sigs[b], len(sigs[b]))
+        text = pipe.recognizer.text(want).strip()
+        assert line == f"serve_utt{b} {text}".rstrip() or _ctc_near_ties(rows) > 0, (line, text)
+
+    # ---- int8 streamed memory, card against CPU (the same codes) ----
+    cpu_model, _ = load(True, device="cpu")
+    cpu_sd = cpu_model.state_dict()
+    for k, v in q_model.state_dict().items():
+        if v.dtype == torch.int8 or k.endswith("weight.0.scale"):
+            assert torch.equal(v.cpu(), cpu_sd[k]), k
+    mem_err = 0.0
+    for b in range(1):
+        f = ((feats[b, : int(nfr[b])] - mean) / std).cpu().numpy()
+        mems = []
+        for m in (q_model, cpu_model):
+            sr = StreamingRecognizer(m)
+            for off in range(0, f.shape[0], 25):
+                sr.push(f[off : off + 25])
+            sr.finish()
+            mems.append(sr.memory)
+        mem_err = max(mem_err, float(np.abs(mems[0] - mems[1]).max()))
+    assert mem_err <= INT8_MEM_ATOL, mem_err
+    # int8 against the float32 offline chunked encode, phase 3's 8 utterances
+    q_diff, q_agree = _int8_vs_f32(q_model, f_model, feats[:S], nfr[:S], mean, std, dev)
+    assert np.isfinite(q_diff) and q_diff <= INT8_VS_F32_ATOL, q_diff
+    assert q_agree >= INT8_CTC_AGREE, q_agree
+    t_checks = time.perf_counter()
+
+    # ---- one round, int8 against float32, in turns ----
+    idim = fdlp_cfg.nfilters
+
+    def in_turns(f32, int8, rows, tag):
+        """_int8_rounds in turns (f32, int8, int8, f32), each model profiled
+        in its first turn: {name: [readings]}."""
+        out = {"f32": [], "int8": []}
+        for name, m in (("f32", f32), ("int8", int8), ("int8", int8), ("f32", f32)):
+            out[name].append(_int8_rounds(m, rows, idim, rng, dev, f"{tag} {name}",
+                                          profile=not out[name]))
+        return out
+
+    def med(d, tag, i):
+        vals = [r[i] for r in d[tag] if r[i] is not None]
+        return statistics.median(vals) if vals else None
+
+    t_timing = time.perf_counter()
+    times = in_turns(f_model, q_model, S, "serve encoder")
+    t_timing = time.perf_counter() - t_timing
+
+    def fmt(d, i, unit):
+        v = med(d, "f32" if unit[0] == "f" else "int8", i)
+        return f"{unit[1:]} not measured" if v is None else f"{v:.3f} {unit[1:]}"
+
+    log(f"[int8] wsj_fdlp_e2e encoder ({q_model.cfg.elayers} layers, adim {q_model.cfg.adim}, "
+        f"FFN {q_model.cfg.eunits}): {n_q} weights int8; quantized_bytes {qb} / {fb} "
+        f"(int8 form / float32 equivalent, ratio {fb / qb:.2f}); device memory of the model "
+        f"{f_bytes / 2**20:.1f} MiB float32, {q_bytes / 2**20:.1f} MiB with the int8 encoder")
+    audio_s = float(sum(len(s_) for s_ in sigs)) / fdlp_cfg.srate
+    log(f"[int8] make_server(int8=True, max_streams {S}): {S} concurrent streams of "
+        f"{audio_s:.1f} s audio in {SERVE_PUSH_S} s messages, unpaced: {t_served:.2f} s wall = "
+        f"{audio_s / t_served:.1f} audio s per wall s, {rounds} batched rounds; "
+        f"{S - mismatched} of {S} finals token-identical to the int8 OnlineASRPipeline "
+        f"({mismatched} at CTC near-ties); K1 launches {serve_launches}; transcribe --int8 "
+        f"on 2 wavs equals the pipeline (K1 launches {transcribe_launches}); serving and its "
+        f"checks {t_checks - t_phase:.1f} s, the round timings {t_timing:.1f} s")
+    log(f"[int8] streamed memory, int8 card vs int8 CPU (same codes): max|err| {mem_err:.3e} "
+        f"(atol {INT8_MEM_ATOL}); int8 vs float32 offline chunked encode on {S} utterances: "
+        f"max|memory diff| {q_diff:.3e} (limit {INT8_VS_F32_ATOL}), CTC argmax agreement "
+        f"{100 * q_agree:.2f}% (limit {100 * INT8_CTC_AGREE:.0f}%)")
+    log(f"[int8] one round at {S} full rows (wall: median of 2 turns each, in turns f32, int8, "
+        f"int8, f32; device: the first turn's profile): float32 {fmt(times, 0, 'fms wall')}, "
+        f"{fmt(times, 1, 'fms device')}, {fmt(times, 2, 'fdevice activities')}; int8 "
+        f"{fmt(times, 0, 'ims wall')}, {fmt(times, 1, 'ims device')}, "
+        f"{fmt(times, 2, 'idevice activities')} (eager "
+        f"dequantization: one multiply per weight per call)")
+
+    # ---- the conformer of phase 10 (b), 5 streams ----
+    conf_dir = os.path.join(tmp, "conf_stream")
+    cq, _ = load(True, d=conf_dir)
+    cf, _ = load(False, d=conf_dir)
+    blob = np.load(os.path.join(conf_dir, "cmvn.npz"))
+    cmean, cstd = blob["mean"], blob["std"]
+    cpipe = OnlineASRPipeline.from_model_dir(conf_dir, int8=True, device=dev)
+    C = INT8_CONF_STREAMS
+    lpc_cepstra.launches = 0
+    want, rows = [], []
+    for sig in sigs[:C]:
+        tok, ctc_rows = _pipeline_run(cpipe, sig, step)
+        want.append(tok)
+        rows.append(ctc_rows)
+    conf_launches = lpc_cepstra.launches
+    assert conf_launches > 0, "the int8 conformer stream did not launch K1"
+    sfeats = []
+    for sig in sigs[:C]:
+        sf = StreamingFdlp(fdlp_cfg, device=dev)
+        outs = [sf.process(sig[off : off + step]) for off in range(0, len(sig), step)]
+        outs.append(sf.finish())
+        sfeats.append((np.concatenate(outs) - cmean) / cstd)
+    sb = StreamBatcher(cq, max_streams=C)
+    sids = [sb.open() for _ in range(C)]
+    offs = [0] * C
+    while any(offs[i] < len(sfeats[i]) for i in range(C)):
+        for i in range(C):
+            if offs[i] < len(sfeats[i]):
+                sb.push(sids[i], sfeats[i][offs[i] : offs[i] + 25])
+                offs[i] += 25
+    c_mismatched = 0
+    for i in range(C):
+        if sb.finish(sids[i]) != want[i]:
+            c_mismatched += 1
+            assert _ctc_near_ties(rows[i]) > 0, i
+    cmean_t = torch.as_tensor(cmean, device=feats.device)
+    cstd_t = torch.as_tensor(cstd, device=feats.device)
+    c_diff, c_agree = _int8_vs_f32(cq, cf, feats[:C], nfr[:C], cmean_t, cstd_t, dev)
+    assert np.isfinite(c_diff) and c_diff <= INT8_VS_F32_ATOL, c_diff
+    assert c_agree >= INT8_CTC_AGREE, c_agree
+    ctimes = in_turns(cf, cq, C, "conformer encoder")
+    log(f"[int8] conformer (phase 10 (b)): {C} streams through an int8 StreamBatcher: "
+        f"{C - c_mismatched} of {C} finals token-identical to int8 OnlineASRPipelines "
+        f"({c_mismatched} at CTC near-ties), K1 launches {conf_launches}; int8 vs float32 "
+        f"offline chunked encode: max|memory diff| {c_diff:.3e} (limit {INT8_VS_F32_ATOL}), "
+        f"CTC argmax agreement {100 * c_agree:.2f}%; one round at {C} rows: float32 "
+        f"{fmt(ctimes, 0, 'fms wall')}, {fmt(ctimes, 1, 'fms device')}; int8 "
+        f"{fmt(ctimes, 0, 'ims wall')}, {fmt(ctimes, 1, 'ims device')}; phase 15 (a) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return serve_launches, transcribe_launches, conf_launches
+
+
+def seeded_words(rng, letters, n, lo=2, hi=9):
+    """n distinct seeded words of lo..hi-1 letters, in the order drawn."""
+    words, seen = [], set()
+    while len(words) < n:
+        lens_ = rng.randint(lo, hi, n)
+        idx = rng.randint(0, len(letters), (n, hi))
+        for L, row in zip(lens_, idx):
+            w = "".join(letters[i] for i in row[:L])
+            if w not in seen:
+                seen.add(w)
+                words.append(w)
+                if len(words) == n:
+                    break
+    return words
+
+
+def wordlm_phase(x, lens, fdlp_cfg, rng, dev, tmp):
+    """Phase 15 (b): the look-ahead word LM. A seeded WORDLM_VOCAB-word
+    lexicon spelled in phase 5's 48 letters and transcripts that use every
+    word; train_lm.main --unit word at the CLI defaults (1 x 1000 GRU, embed
+    256, batch 64, bptt 128), one epoch; recog_e2e.main --word_lm_dir
+    --word_lm_dict with phase 5's model (phase 14 (d)'s cl_m5 directory) on
+    WORDLM_UTTS of phase 3's utterances (FDLP on K1, counted), beam 10,
+    max_len WORDLM_MAX_LEN, offline and --streaming (attn_chunk 16 / left 4
+    at decode time); hypotheses card vs CPU on WORDLM_CPU_UTTS; ms a search
+    step by part. Returns K1's launches over the decode set's featgen."""
+    from speech_recognition_tools_tpu_torch.cli import recog_e2e, train_lm
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import beam_search_encoded
+    from speech_recognition_tools_tpu_torch.decode.wordlm import (
+        LookaheadWordLM,
+        word_vocab_from_dict,
+    )
+    from speech_recognition_tools_tpu_torch.dsp.fdlp import fdlp_lags, fdlp_spectrogram_batch
+    from speech_recognition_tools_tpu_torch.io.egs import build_egs
+    from speech_recognition_tools_tpu_torch.io.text import load_vocab
+    from speech_recognition_tools_tpu_torch.models.rnnlm import RNNLM
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import lpc_cepstra
+    from speech_recognition_tools_tpu_torch.train.optim import ClipAdam
+    from speech_recognition_tools_tpu_torch.utils.cmvn import apply_cmvn, cmvn_stats_masked
+
+    t_phase = time.perf_counter()
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    vocab = load_vocab(j("cl_m5", "vocab.json"))
+    letters = sorted(c for c in vocab if len(c) == 1)
+    words = seeded_words(rng, letters, WORDLM_VOCAB - 2)
+    order = rng.permutation(len(words))
+    texts, i = {}, 0
+    while i < len(order):
+        n = int(rng.randint(*WORDLM_TEXT_WORDS))
+        texts[f"w{len(texts):05d}"] = " ".join(words[k] for k in order[i : i + n])
+        i += n
+    with open(j("wlm_text"), "w") as fh:
+        fh.writelines(f"{k} {v}\n" for k, v in texts.items())
+    store = j("wlm")
+    t_main, nll = _synced(lambda: train_lm.main(
+        [j("wlm_text"), store, "--unit", "word", "--word_vocab_size", str(WORDLM_VOCAB),
+         "--epochs", "1", "--device", str(dev)]))
+    wvocab = load_vocab(j("wlm", "vocab.json"))
+    assert len(wvocab) == WORDLM_VOCAB and wvocab["<eos>"] == 0 and np.isfinite(nll).all()
+    with open(j("wlm_dict.txt"), "w") as fh:
+        fh.writelines(f"{w} {k}\n" for w, k in wvocab.items())
+    assert word_vocab_from_dict(j("wlm_dict.txt"), n_vocab=WORDLM_VOCAB) == wvocab
+
+    # a step's time and tokens/s, and the first step's loss card vs CPU
+    d = dict(embed_dim=256, hidden=1000, layers=1)
+    batches = list(train_lm.lm_batches(texts, wvocab, 64, 128, seed=0, unit="word"))
+
+    def fresh(device):
+        m = RNNLM(WORDLM_VOCAB, d["embed_dim"], d["hidden"], d["layers"], device=device)
+        m.reset_parameters(torch.Generator().manual_seed(3))
+        opt = ClipAdam(1e-3, None, inject=False)
+        return m, opt, train_lm.make_train_step(m, opt)
+
+    toks, lens_b = batches[0][0][:LM_STEP_CPU_SEQS], batches[0][1][:LM_STEP_CPU_SEQS]
+    toks = toks[:, : int(lens_b.max())]
+    losses = {}
+    for device in ("cpu", dev):
+        m, opt, stp = fresh(device)
+        _, loss = stp(opt.init(dict(m.named_parameters())),
+                      torch.as_tensor(toks, device=device).long(),
+                      torch.as_tensor(lens_b, device=device).long())
+        losses[str(device)] = loss.item()
+    l_c, l_g = losses["cpu"], losses[str(dev)]
+    assert _rel(l_g, l_c) <= 1e-5, (l_g, l_c)
+    m, opt, stp = fresh(dev)
+    ost = opt.init(dict(m.named_parameters()))
+    full = (torch.as_tensor(batches[0][0], device=dev).long(),
+            torch.as_tensor(batches[0][1], device=dev).long())
+    t_step, (ost, _) = wall_s(lambda: stp(ost, *full))
+    n_tok = int((full[1] - 1).sum())
+    del m, opt, stp, ost
+
+    # the decode set: phase 3's utterances, FDLP on K1, CMVN, egs
+    U = WORDLM_UTTS
+    lpc_cepstra.launches = 0
+    f, n = fdlp_spectrogram_batch(x[:U], lens[:U], fdlp_cfg, device=dev)
+    torch.cuda.synchronize()
+    launches = lpc_cepstra.launches
+    assert launches > 0, "the word-LM decode set's featgen did not launch K1"
+    r, _ = fdlp_lags(x[:U], lens[:U], fdlp_cfg, device=dev)
+    # order-150 FDLP lags: phase 2's limits for them
+    k1_err = _k1_on_path("word-LM decode set", r.reshape(-1, r.shape[-1]), fdlp_cfg.order,
+                         fdlp_cfg.coeff_num, NEAR_PERIODIC_TOL, NEAR_PERIODIC_REL)
+    f = apply_cmvn(f, *cmvn_stats_masked(f, n))
+    build_egs(((f"utt{b}", f[b, : int(n[b])].cpu().numpy()) for b in range(U)), j("wlm_egs"))
+    build_egs(((f"utt{b}", f[b, : int(n[b])].cpu().numpy()) for b in range(WORDLM_CPU_UTTS)),
+              j("wlm_egs_cpu"))
+    common = ["--word_lm_dir", store, "--word_lm_dict", j("wlm_dict.txt"), "--beam_size",
+              str(E2E_BEAM["beam_size"]), "--max_len", str(WORDLM_MAX_LEN)]
+    t_off, hyps = _synced(lambda: recog_e2e.main(
+        [j("cl_m5"), j("wlm_egs"), j("wlm_hyp.txt"), *common, "--device", str(dev)]))
+    t_str, hyps_s = _synced(lambda: recog_e2e.main(
+        [j("cl_m5"), j("wlm_egs"), j("wlm_hyp_stream.txt"), *common, "--streaming",
+         "--attn_chunk", str(SERVE_CHUNK["attn_chunk"]), "--attn_left_chunks",
+         str(SERVE_CHUNK["attn_left_chunks"]), "--device", str(dev)]))
+    assert len(hyps) == len(hyps_s) == U
+    # the same utterances' features decoded on the CPU: the card's hypotheses
+    t_cpu, cpu_hyps = _synced(lambda: recog_e2e.main(
+        [j("cl_m5"), j("wlm_egs_cpu"), j("wlm_hyp_cpu.txt"), *common, "--device", "cpu"]))
+    assert len(cpu_hyps) == WORDLM_CPU_UTTS
+    assert all(cpu_hyps[k] == hyps[k] for k in cpu_hyps), (cpu_hyps, hyps)
+
+    # ms a search step by part, on the first utterance
+    model, _, _ = recog_e2e._load(j("cl_m5"), "final_avg", device=dev)
+    wlm = LookaheadWordLM(recog_e2e._load_lm(store, device=dev), wvocab, vocab)
+    calls = [0]
+
+    def scorer(prefix):
+        calls[0] += 1
+        return wlm(prefix)
+
+    with torch.no_grad():
+        mem, el, ctc = model.encode(f[:1], n[:1])
+    timings = {}
+    beam_search_encoded(model, mem, el, ctc, max_len=WORDLM_MAX_LEN, prefix_scorer=scorer,
+                        timings=timings, **E2E_BEAM)
+    steps = max(calls[0], 1)
+    st = dict(wlm.stats)
+    device_breakdown("word-LM search, 5 steps", lambda: beam_search_encoded(
+        model, mem, el, ctc, max_len=5, prefix_scorer=wlm, **E2E_BEAM), top=4)
+    lookups = st["hits"] + st["misses"]
+    per = {k: 1e3 * v / steps for k, v in timings.items()}
+    log(f"[wordlm] train_lm.main --unit word --word_vocab_size {WORDLM_VOCAB}: "
+        f"{len(texts)} transcripts, {len(batches)} batches of 64 (bptt 128), 1 x 1000 GRU, "
+        f"embed 256: one epoch {t_main:.2f} s (checkpoints included), nll {nll[0]:.4f}; a step "
+        f"at B={len(batches[0][1])} x U={batches[0][0].shape[1]}: {1e3 * t_step:.1f} ms = "
+        f"{n_tok / t_step:.0f} tokens/s; first-step loss card {l_g:.6f} / CPU {l_c:.6f} on "
+        f"{LM_STEP_CPU_SEQS} sequences (rel {_rel(l_g, l_c):.3e}, limit 1e-5)")
+    log(f"[wordlm] recog_e2e --word_lm_dir --word_lm_dict, phase 5's model, {U} utterances "
+        f"(FDLP on K1: {launches} launches, vs plain {k1_err:.3e}), beam "
+        f"{E2E_BEAM['beam_size']}, max_len "
+        f"{WORDLM_MAX_LEN}: offline {t_off:.2f} s, --streaming (attn_chunk "
+        f"{SERVE_CHUNK['attn_chunk']} / left {SERVE_CHUNK['attn_left_chunks']}) {t_str:.2f} s; "
+        f"hypotheses card vs CPU identical on {WORDLM_CPU_UTTS} (CPU {t_cpu:.2f} s); "
+        f"hypothesis words {[len(h.split()) for h in hyps.values()]}")
+    log(f"[wordlm] one search of {steps} steps, ms a step: decoder {per.get('decoder', 0):.2f}, "
+        f"CTC {per.get('ctc', 0):.2f}, word LM {per.get('lm', 0):.2f} (device "
+        f"{1e3 * st['device_s'] / steps:.2f}, host tree walk {1e3 * st['host_s'] / steps:.2f}), "
+        f"top-k {per.get('topk', 0):.2f}, update {per.get('update', 0):.2f}; LRU hit rate "
+        f"{100 * st['hits'] / max(lookups, 1):.1f}% of {lookups} history lookups; phase 15 (b) "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def align_phase(xh, lh, rng, dev, tmp):
+    """Phase 15 (c): forced alignment at timit_hybrid's front-end. Phase 4's
+    utterances through FDLP (K1, counted, then held to its plain version on
+    the path's lags) and CMVN, written as feats.scp; a seeded ALIGN_WORDS-word
+    lexicon over ALIGN_PHONES phones (silence phone 0) and transcripts the
+    frames can carry; force_align.main at its CLI defaults with
+    ALIGN_FLAGS; one batch's pseudo log-likelihoods aligned card vs CPU;
+    ali_utils convert and combine on the result. Returns K1's launches."""
+    import pickle
+
+    from speech_recognition_tools_tpu_torch.align import (
+        HmmTopology,
+        read_lexicon,
+        trailing_optional,
+        utterance_states,
+        viterbi_align_batch,
+    )
+    from speech_recognition_tools_tpu_torch.cli import ali_utils, force_align
+    from speech_recognition_tools_tpu_torch.dsp.fdlp import (
+        FdlpConfig,
+        fdlp_lags,
+        fdlp_spectrogram_batch,
+    )
+    from speech_recognition_tools_tpu_torch.io.kaldi_ark import write_ark_scp
+    from speech_recognition_tools_tpu_torch.models.recurrent import RNNClassifier
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import lpc_cepstra
+    from speech_recognition_tools_tpu_torch.utils.cmvn import apply_cmvn, cmvn_stats_masked
+
+    t_phase = time.perf_counter()
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    hyb = FdlpConfig()  # timit_hybrid: 20 bands, order 50, 0.5 s
+    lpc_cepstra.launches = 0
+    feats, nfr = fdlp_spectrogram_batch(xh, lh, hyb, device=dev)
+    torch.cuda.synchronize()
+    launches = lpc_cepstra.launches
+    assert launches > 0, "the alignment corpus's featgen did not launch K1"
+    r, _ = fdlp_lags(xh, lh, hyb, device=dev)
+    k1_err = _k1_on_path("alignment", r.reshape(-1, r.shape[-1]), hyb.order, hyb.coeff_num,
+                         MAIN_PATH_TOL, MAIN_PATH_REL)
+    feats = apply_cmvn(feats, *cmvn_stats_masked(feats, nfr))
+    utts = {f"a{b:02d}": feats[b, : int(nfr[b])].cpu().numpy() for b in range(len(lh))}
+    write_ark_scp(utts, j("ali_feats"))
+
+    lexicon = {f"w{k:03d}": [int(p) for p in rng.randint(1, ALIGN_PHONES, rng.randint(2, 7))]
+               for k in range(ALIGN_WORDS)}
+    lexicon["w000"][0] = ALIGN_PHONES - 1  # every phone id up to 47 in the topology
+    with open(j("ali_lexicon.txt"), "w") as fh:
+        fh.writelines(f"{w} {' '.join(map(str, ps))}\n" for w, ps in lexicon.items())
+    names = sorted(lexicon)
+    texts = {}
+    for u, f in utts.items():
+        # words while their states (3 a phone) fill at most a third of the frames
+        ws, states = [], 10
+        while True:
+            w = names[rng.randint(len(names))]
+            if ws and states + 3 * len(lexicon[w]) + 3 > f.shape[0] // 3:
+                break
+            ws.append(w)
+            states += 3 * len(lexicon[w]) + 3
+        texts[u] = " ".join(ws)
+    with open(j("ali_text"), "w") as fh:
+        fh.writelines(f"{u} {t}\n" for u, t in texts.items())
+
+    history, tm = [], {}
+    t_align, (labels, num_pdfs) = _synced(lambda: force_align.main(
+        [j("ali_feats.scp"), j("ali_text"), j("ali_lexicon.txt"), j("ali.pkl"), *ALIGN_FLAGS,
+         "--device", str(dev)], history=history, timings=tm))
+    with open(j("ali.pkl"), "rb") as fh:
+        ali = pickle.load(fh)
+    assert sorted(ali) == sorted(utts) and len(history) >= 1
+    assert all(len(ali[u]) == utts[u].shape[0] and ali[u].max() < num_pdfs for u in ali)
+    n_batches = len(history) * -(-len(utts) // 8)
+
+    # one batch's pseudo log-likelihoods, aligned on the card and on the CPU
+    topo = HmmTopology(ALIGN_PHONES, 3, 0, silence_states=5, wpd_silence=True)
+    assert topo.num_pdfs == num_pdfs
+    lex = read_lexicon(j("ali_lexicon.txt"))
+    batch = sorted(utts)[:8]
+    chains = []
+    for u in batch:
+        p, sk, st = utterance_states(texts[u].split(), lex, topo=topo)
+        chains.append((p, sk, st, trailing_optional(p, sk, 0, 3, topo=topo)))
+    T = max(utts[u].shape[0] for u in batch)
+    fb = np.zeros((len(batch), T, hyb.nfilters), np.float32)
+    for b, u in enumerate(batch):
+        fb[b, : utts[u].shape[0]] = utts[u]
+    lb = torch.as_tensor([utts[u].shape[0] for u in batch], device=dev)
+    am = RNNClassifier(hyb.nfilters, 1, 96, num_pdfs, device=dev)
+    am.reset_parameters(torch.Generator().manual_seed(5))
+    counts = np.bincount(np.concatenate(list(ali.values())), minlength=num_pdfs)
+    prior = torch.as_tensor(np.log((counts + 1.0) / (counts.sum() + num_pdfs)).astype(np.float32),
+                            device=dev)
+    with torch.no_grad():
+        pseudo = torch.log_softmax(am(torch.as_tensor(fb, device=dev), lb), -1) - prior
+    card = viterbi_align_batch(pseudo, lb.cpu().numpy(), chains)
+    cpu = viterbi_align_batch(pseudo.cpu(), lb.cpu().numpy(), chains)
+    device_breakdown("Viterbi DP + traceback, a batch of 8", lambda: viterbi_align_batch(
+        pseudo, lb.cpu().numpy(), chains), top=4)
+    worst = 0.0
+    for (la, sa), (lc, sc) in zip(card, cpu):
+        assert la is not None and lc is not None and np.array_equal(la, lc)
+        worst = max(worst, _rel(sa, sc))
+    assert worst <= 1e-5, worst
+
+    # ali_utils convert (pdf -> its phone) and combine (ali.pkl twice)
+    pdf_phone = np.searchsorted(topo.base, np.arange(num_pdfs), side="right") - 1
+    with open(j("ali_map.txt"), "w") as fh:
+        fh.writelines(f"{k} {int(p)}\n" for k, p in enumerate(pdf_phone))
+    ali_utils.main(["convert", j("ali.pkl"), j("ali_phones.pkl"), "--label_map", j("ali_map.txt")])
+    os.makedirs(j("ali_copy"), exist_ok=True)
+    with open(j("ali_copy", "ali.pkl"), "wb") as fh:
+        pickle.dump(ali, fh)
+    ali_utils.main(["combine", j("ali_all.pkl"), j("ali.pkl"), j("ali_copy", "ali.pkl")])
+    with open(j("ali_phones.pkl"), "rb") as fh:
+        phones = pickle.load(fh)
+    with open(j("ali_all.pkl"), "rb") as fh:
+        combined = pickle.load(fh)
+    assert all(np.array_equal(phones[u], pdf_phone[ali[u]]) for u in ali)
+    assert len(combined) == 2 * len(ali)
+
+    steps = max(tm.get("am_steps", 0), 1)
+    frames = sum(len(v) for v in ali.values())
+    log(f"[align] timit_hybrid front-end, {len(utts)} utterances ({frames} frames), FDLP on "
+        f"K1: {launches} launches, K1 vs plain on the path's lags max|err| {k1_err:.3e}; "
+        f"lexicon {ALIGN_WORDS} words over {ALIGN_PHONES} phones, {num_pdfs} pdfs "
+        f"({' '.join(ALIGN_FLAGS)})")
+    log(f"[align] force_align.main (hidden 96, 1 layer, 10 epochs, 2 iterations, batch 8): "
+        f"{t_align:.2f} s; {1e3 * tm.get('am_step', 0) / steps:.2f} ms an AM step over {steps} "
+        f"steps; device DP {1e3 * tm.get('dp', 0) / n_batches:.2f} ms and host traceback "
+        f"{1e3 * tm.get('traceback', 0) / n_batches:.2f} ms a batch of 8; frames changed per "
+        f"iteration {[h['frames_changed_pct'] for h in history]}%, AM loss "
+        f"{[round(h['am_loss'], 4) for h in history]}")
+    log(f"[align] one batch's pseudo log-likelihoods, card vs CPU: labels identical, scores "
+        f"within {worst:.3e} relative (limit 1e-5); ali_utils convert and combine done; phase "
+        f"15 (c) took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4020,8 +4646,14 @@ def main():
         lifelong_phase(dev, tmp)
         cl_phase(e2e_model, dev, tmp)
         log(f"[phase14] {time.perf_counter() - t14:.2f} s")
+        # ---- 15. int8 serving, the look-ahead word LM, forced alignment ----
+        t15 = time.perf_counter()
+        int8_launches = int8_phase(x, lens, e2e, fa, na, rng, dev, tmp)
+        wordlm_launches = wordlm_phase(x, lens, e2e, rng, dev, tmp)
+        align_launches = align_phase(xh, lh, rng, dev, tmp)
+        log(f"[phase15] {time.perf_counter() - t15:.2f} s")
 
-    # ---- 15. every kernel of the port ----
+    # ---- 16. every kernel of the port ----
     log(json.dumps({"kernels": [{
         "name": "lpc_cepstra",
         "route": "cuda",
@@ -4036,7 +4668,11 @@ def main():
                              "conformer_e2e": conf_launches,
                              "conformer_stream": conf_stream_launches,
                              "modspec": modspec_launches, "bf16_e2e": bf16_launches,
-                             "pm_stage": pm_launches, "adapt": adapt_launches},
+                             "pm_stage": pm_launches, "adapt": adapt_launches,
+                             "int8_serve": int8_launches[0],
+                             "int8_transcribe": int8_launches[1],
+                             "int8_conformer_stream": int8_launches[2],
+                             "wordlm_decode": wordlm_launches, "align": align_launches},
         "max_abs_err": main_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -4051,7 +4687,7 @@ def main():
     # names the card and its power limit beside the numbers above
     log(smi)
 
-    # ---- 16. contract line ----
+    # ---- 17. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,14 @@ more decodes one utterance at a time with the continual-learning fusion
 model), ahead of `--jit_decode`, as the JAX CLI does. Like the JAX CLI it
 parses a missing `--pm_scores` as [""] and raises ValueError there, and a
 list shorter than the models drops the models past its end (ROADMAP
-Queue 3). `--word_lm_dir` and `--ring_attention > 1` raise
+Queue 3).
+
+`--word_lm_dir` fuses a word RNNLM (train_lm --unit word, or an imported
+one) through the look-ahead prefix tree (decode/wordlm.py), with the word
+list of `--word_lm_dict` ('word id' lines) or the LM dir's vocab.json, in
+the offline search and in `--streaming`'s beam final, as the JAX CLI does;
+it excludes `--lm_dir`, `--api cl` and `--jit_decode` (ValueError here,
+where the JAX CLI asserts). `--ring_attention > 1` raises
 NotImplementedError.
 """
 
@@ -58,10 +65,15 @@ def get_parser():
                    help="round padded batch frames up to this multiple")
     p.add_argument("--lm_dir", help="train_lm checkpoint dir for RNNLM shallow fusion")
     p.add_argument("--lm_weight", type=float, default=1.0)
-    p.add_argument("--word_lm_dir", help="not yet ported")
-    p.add_argument("--word_lm_dict", help="(--word_lm_dir) not yet ported")
+    p.add_argument("--word_lm_dir",
+                   help="word RNNLM dir fused through the look-ahead prefix tree "
+                        "(decode/wordlm.py); host beam paths only, exclusive with "
+                        "--lm_dir")
+    p.add_argument("--word_lm_dict",
+                   help="(--word_lm_dir) ESPnet-style word list ('word id' lines); "
+                        "default: vocab.json inside --word_lm_dir")
     p.add_argument("--oov_penalty", type=float, default=1e-4,
-                   help="(--word_lm_dir) not yet ported")
+                   help="(--word_lm_dir) per-char penalty factor for out-of-lexicon words")
     p.add_argument("--attn_chunk", type=int, default=None,
                    help="override the checkpoint's encoder attention chunking "
                         "at decode time; default: from the checkpoint")
@@ -140,10 +152,32 @@ def _load(model_dir, ckpt, compute_dtype="float32", attn_chunk=None,
     return model.eval(), cfg, vocab
 
 
+def _word_lm(args, char_vocab, device):
+    """The LookaheadWordLM of --word_lm_dir, with the JAX CLI's checks."""
+    from speech_recognition_tools_tpu_torch.decode.wordlm import (
+        LookaheadWordLM,
+        word_vocab_from_dict,
+    )
+    from speech_recognition_tools_tpu_torch.io.text import load_vocab
+
+    if args.lm_dir:
+        raise ValueError("--word_lm_dir and --lm_dir are exclusive (the look-ahead "
+                         "word LM already yields per-char fusion scores)")
+    if args.api == "cl" or args.jit_decode:
+        raise ValueError("--word_lm_dir fusion is a host decode path (no cl/jit)")
+    wlm = _load_lm(args.word_lm_dir, device=device)
+    n_vocab = wlm.embed.num_embeddings
+    if args.word_lm_dict:
+        wvocab = word_vocab_from_dict(args.word_lm_dict, n_vocab=n_vocab)
+    else:
+        wvocab = load_vocab(os.path.join(args.word_lm_dir, "vocab.json"))
+        if max(wvocab.values()) >= n_vocab:
+            raise ValueError(f"word vocab ids exceed the word LM's {n_vocab} embedding rows")
+    return LookaheadWordLM(wlm, wvocab, char_vocab, oov_penalty=args.oov_penalty)
+
+
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    if args.word_lm_dir:
-        raise NotImplementedError("--word_lm_dir (look-ahead word LM) is not yet ported")
     if args.ring_attention > 1:
         raise NotImplementedError("--ring_attention is not yet ported")
 
@@ -164,6 +198,7 @@ def main(argv=None):
                     device=dev) for d in args.model_dir.split(",")]
     model, cfg, vocab = loaded[0]
     lm = _load_lm(args.lm_dir, device=dev) if args.lm_dir else None
+    word_lm = _word_lm(args, vocab, dev) if args.word_lm_dir else None
     beam = dict(beam_size=args.beam_size, max_len=args.max_len, ctc_weight=args.ctc_weight,
                 penalty=args.penalty)
 
@@ -210,12 +245,12 @@ def main(argv=None):
                 ctc = torch.as_tensor(recognizer.ctc_logits[None]).to(dev)
                 toks, scores = beam_search_encoded(
                     model, mem, torch.tensor([recognizer.enc_len], device=dev), ctc,
-                    lm=lm, lm_weight=args.lm_weight, **beam)
+                    lm=lm, lm_weight=args.lm_weight, prefix_scorer=word_lm, **beam)
                 seqs = [tokens_to_list(toks[0], scores[0], cfg.eos_id)]
         else:
             toks, scores = beam_search_batched(
                 model, b["feats"], b["lengths"], lm=lm, lm_weight=args.lm_weight,
-                device=dev, **beam)
+                device=dev, prefix_scorer=word_lm, **beam)
             seqs = [tokens_to_list(toks[i], scores[i], cfg.eos_id) for i in range(len(b["keys"]))]
         for key, seq in zip(b["keys"], seqs):
             hyps[key] = decode_tokens(seq, vocab)

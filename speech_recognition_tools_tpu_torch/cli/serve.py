@@ -37,7 +37,7 @@ audio stream):
 Run:  python -m speech_recognition_tools_tpu_torch.cli.serve model_dir --port 8973
       [--fdlp flags] [--device cpu]
 The model directory's config.json gives its encoder (transformer, or
-conformer with its conv_kernel). `--int8` raises NotImplementedError.
+conformer with its conv_kernel). `--int8` quantizes the encoder's weights.
 """
 
 import argparse
@@ -56,7 +56,10 @@ def get_parser():
     p.add_argument("--max_streams", type=int, default=8,
                    help="StreamBatcher batch rows (concurrent streams "
                         "beyond this still work; their chunks queue)")
-    p.add_argument("--int8", action="store_true", help="not yet ported")
+    p.add_argument("--int8", action="store_true",
+                   help="weight-only int8 quantization of the encoder "
+                        "(infer/quantize.py): 4x less weight memory than "
+                        "float32; accuracy bounded by the per-channel step")
     p.add_argument("--defer_ms", type=float, default=30.0,
                    help="dynamic batching: hold a ready chunk up to this "
                         "long so concurrent connections coalesce into one "
@@ -292,10 +295,9 @@ def make_server(model_dir, ckpt="final_avg", host="127.0.0.1", port=0, max_strea
     """(server, bound_port); serve_forever() on the caller's thread.
     cmvn: optional (mean, std). Without fdlp_cfg / cmvn, the model dir's
     `serving.json` supplies them (resolve_frontend). On a card the kernels
-    are built here, before the first connection."""
-    if int8:
-        raise NotImplementedError("int8 encoder weights (infer/quantize.py) are not yet ported "
-                                  "(ROADMAP Queue 1 item 3: int8 serving)")
+    are built here, before the first connection. int8=True quantizes the
+    encoder's weights at load time (weight-only, infer/quantize.py): they
+    stay int8 on the device and are dequantized at each use."""
     from speech_recognition_tools_tpu_torch.cli.recog_e2e import _load
     from speech_recognition_tools_tpu_torch.infer.streaming_asr import (
         load_manifest_cmvn,
@@ -303,6 +305,10 @@ def make_server(model_dir, ckpt="final_avg", host="127.0.0.1", port=0, max_strea
     )
 
     model, _cfg, vocab = _load(model_dir, ckpt, device=device)
+    if int8:
+        from speech_recognition_tools_tpu_torch.infer.quantize import quantize_encoder
+
+        quantize_encoder(model)
     if next(model.parameters()).device.type == "cuda":
         from speech_recognition_tools_tpu_torch import kernels
 
@@ -320,9 +326,6 @@ def make_server(model_dir, ckpt="final_avg", host="127.0.0.1", port=0, max_strea
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    if args.int8:
-        raise NotImplementedError("--int8 (infer/quantize.py) is not yet ported "
-                                  "(ROADMAP Queue 1 item 3: int8 serving)")
     overrides = {k: getattr(args, k)
                  for k in ("srate", "nfilters", "fduration", "order", "coeff_num")}
     try:
@@ -337,9 +340,10 @@ def main(argv=None):
         cmvn = (np.asarray(blob["mean"], np.float32), np.asarray(blob["std"], np.float32))
     server, port = make_server(
         args.model_dir, args.ckpt, args.host, args.port, args.max_streams, fdlp_cfg,
-        cmvn=cmvn, defer_s=args.defer_ms / 1000.0, device=args.device,
+        cmvn=cmvn, int8=args.int8, defer_s=args.defer_ms / 1000.0, device=args.device,
     )
-    print(f"serving on {args.host}:{port} (max {args.max_streams} batched streams)")
+    print(f"serving on {args.host}:{port} (max {args.max_streams} batched streams"
+          f"{', int8 encoder' if args.int8 else ''})")
     try:
         server.serve_forever()
     finally:

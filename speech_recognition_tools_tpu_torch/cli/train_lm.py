@@ -1,4 +1,4 @@
-"""RNNLM training CLI, character units with the GRU or LSTM cell.
+"""RNNLM training CLI, character or word units, with the GRU or LSTM cell.
 
 Port of speech_recognition_tools_tpu/cli/train_lm.py with its flags and
 outputs: a Kaldi text file in, `vocab.json`, one `epoch_N` checkpoint per
@@ -17,15 +17,15 @@ its state is written in that layout (io/jax_params.py, `inject=False`). The init
 from a torch.Generator seeded with `--seed` (flax's distributions, not
 jax.random's bits); the batches are shuffled by numpy as in the JAX CLI.
 `--cell lstm` trains the JAX package's LSTM RNNLM (flax OptimizedLSTMCell
-layers, ESPnet's default LM cell). `--unit word` raises
-NotImplementedError.
+layers, ESPnet's default LM cell). `--unit word` trains the reference's
+use_wordlm=true LM (run_fdlp_e1.sh:36-39): the vocabulary is the top
+`--word_vocab_size` words under <eos> (id 0, both BOS and EOS) and <unk>,
+and recog_e2e --word_lm_dir fuses it through the look-ahead prefix tree
+(decode/wordlm.py).
 """
 
 import argparse
 import os
-
-_WORD = ("--unit word is not yet ported (ROADMAP Queue 1 item 3: word-level LMs and the "
-         "look-ahead word LM)")
 
 
 def get_parser():
@@ -36,9 +36,10 @@ def get_parser():
                                    "build from the text, which matches "
                                    "train_e2e on the same text)")
     p.add_argument("--unit", default="char", choices=["char", "word"],
-                   help="token unit; only 'char' is ported")
+                   help="token unit; 'word': vocab = top --word_vocab_size words "
+                        "+ <eos>/<unk>, fused by recog_e2e --word_lm_dir")
     p.add_argument("--word_vocab_size", type=int, default=65000,
-                   help="(--unit word) not yet ported")
+                   help="(--unit word) vocabulary cap (reference lm_vocabsize)")
     p.add_argument("--embed_dim", type=int, default=256)
     p.add_argument("--hidden", type=int, default=1000)
     p.add_argument("--layers", type=int, default=1)
@@ -54,20 +55,24 @@ def get_parser():
     return p
 
 
-def lm_batches(texts, vocab, batch_size, bptt_len, seed=None):
+def lm_batches(texts, vocab, batch_size, bptt_len, seed=None, unit="char"):
     """Yield (tokens (B, U) int32 -1-padded, lengths (B,) int32) batches of
-    sos + tokens + eos, where <sos/eos> (the last id) bounds each sequence,
-    as in train_e2e's token space (character units only). With `seed`, the
-    sequences are shuffled by numpy's RandomState(seed), as the JAX CLI
+    sos + tokens + eos. char: <sos/eos> (the last id) bounds each sequence,
+    as in train_e2e's token space; word: <eos> (id 0) is both BOS and EOS,
+    the convention decode/wordlm.py's history scoring uses. With `seed`,
+    the sequences are shuffled by numpy's RandomState(seed), as the JAX CLI
     shuffles them."""
     import numpy as np
 
-    from speech_recognition_tools_tpu_torch.io.text import encode_text
+    from speech_recognition_tools_tpu_torch.io.text import encode_text, encode_words
 
-    sos = len(vocab) - 1
+    if unit == "word":
+        sos, encode = vocab["<eos>"], encode_words
+    else:
+        sos, encode = len(vocab) - 1, encode_text
     seqs = []
     for t in texts.values():
-        ids = encode_text(t, vocab)
+        ids = encode(t, vocab)
         for off in range(0, len(ids), bptt_len - 2):
             chunk = ids[off : off + bptt_len - 2]
             seqs.append([sos] + chunk + [sos])  # sos/eos share the id
@@ -107,8 +112,6 @@ def make_train_step(model, opt):
 def main(argv=None):
     """Train; returns each epoch's mean loss (the nll the JAX CLI prints)."""
     args = get_parser().parse_args(argv)
-    if args.unit != "char":
-        raise NotImplementedError(_WORD)
 
     import numpy as np
     import torch
@@ -122,6 +125,7 @@ def main(argv=None):
     )
     from speech_recognition_tools_tpu_torch.io.text import (
         build_char_vocab,
+        build_word_vocab,
         load_vocab,
         read_text_file,
         save_vocab,
@@ -136,7 +140,14 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     texts = read_text_file(args.text)
-    vocab = load_vocab(args.vocab) if args.vocab else build_char_vocab(texts.values())
+    if args.vocab:
+        vocab = load_vocab(args.vocab)
+        if args.unit == "word" and not ("<unk>" in vocab and "<eos>" in vocab):
+            raise ValueError("--unit word needs a vocab with <unk>/<eos>")
+    elif args.unit == "word":
+        vocab = build_word_vocab(texts.values(), args.word_vocab_size)
+    else:
+        vocab = build_char_vocab(texts.values())
     os.makedirs(args.store_path, exist_ok=True)
     save_vocab(vocab, os.path.join(args.store_path, "vocab.json"))
 
@@ -174,7 +185,7 @@ def main(argv=None):
     for ep in range(start_ep, args.epochs):
         losses = []
         for toks, lens in lm_batches(texts, vocab, args.batch_size, args.bptt_len,
-                                     seed=args.seed + ep):
+                                     seed=args.seed + ep, unit=args.unit):
             opt_state, loss = step(opt_state, torch.as_tensor(toks, device=dev).long(),
                                    torch.as_tensor(lens, device=dev).long())
             losses.append(float(loss))

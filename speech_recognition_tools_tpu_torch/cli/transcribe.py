@@ -16,7 +16,8 @@ Output: Kaldi-style `utt text` lines (--out, default stdout) and an
 optional JSON of per-utterance segments:
 `{"utt": {"text": ..., "segments": [{"start": s, "end": s, "text": ...,
 "conf": ..., "tokens": [...], "times": [...]}]}}`, times in seconds from
-the start of the recording. `--int8` raises NotImplementedError.
+the start of the recording. `--int8` quantizes the encoder's weights
+(infer/quantize.py).
 """
 
 import argparse
@@ -83,12 +84,9 @@ def main(argv=None):
                         "does not change results)")
     p.add_argument("--block_frames", type=int, default=8,
                    help="featgen block size in analysis windows")
-    p.add_argument("--int8", action="store_true", help="not yet ported")
+    p.add_argument("--int8", action="store_true", help="int8-quantize the encoder weights")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
-    if args.int8:
-        raise NotImplementedError("--int8 (infer/quantize.py) is not yet ported "
-                                  "(ROADMAP Queue 1 item 3: int8 serving)")
 
     from speech_recognition_tools_tpu_torch.infer.streaming_asr import OnlineASRPipeline
     from speech_recognition_tools_tpu_torch.io.scp import read_scp
@@ -108,7 +106,7 @@ def main(argv=None):
         p.error(f"duplicate utterance ids (basename clash or scp overlap): {sorted(dups)}")
 
     pipe = OnlineASRPipeline.from_model_dir(
-        args.model_dir, ckpt=args.ckpt, block_frames=args.block_frames,
+        args.model_dir, ckpt=args.ckpt, block_frames=args.block_frames, int8=args.int8,
         endpoint_blanks=args.endpoint_blanks, store_memory=False, device=args.device,
     )
     srate = pipe.fdlp_cfg.srate

@@ -29,6 +29,10 @@ Where the port differs in form, not in result:
   - scores are float32 throughout (the JAX search holds them in float64
     under x64).
 
+prefix_scorer is the JAX host search's `lm_apply` hook (the look-ahead
+word LM of decode/wordlm.py goes through it): raw scores of the token
+prefixes, added to the LM column without normalisation.
+
 incremental=True runs the decoder in its KV-cached decode mode (one token
 a step against each layer's key/value cache, the caches reordered with the
 beams every step) instead of the full-prefix pass; the search is
@@ -84,11 +88,19 @@ def _top_k(flat: torch.Tensor, k: int):
 @torch.no_grad()
 def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
                         max_len=100, ctc_weight=0.3, penalty=0.0, lm=None,
-                        lm_weight=1.0, timings=None, incremental=False):
+                        lm_weight=1.0, timings=None, incremental=False,
+                        prefix_scorer=None):
     """The search proper, from the encoder's output (model.encode).
 
     memory (B, T2, adim), enc_len (B,), ctc_logits (B, T2, V), all on the
     model's device; lm: an RNNLM on the same device, or None.
+
+    prefix_scorer: the JAX host search's `lm_apply` hook
+    (models/transformer_asr.py::beam_search), e.g. decode/wordlm.py's
+    LookaheadWordLM: a callable on the (B * K, step + 1) token prefixes
+    (sos first) returning raw (B * K, V) scores, added to the LM column as
+    they are (no log_softmax) and gathered with the beams. Exclusive with
+    `lm`.
 
     timings: optional dict; when given, each step synchronises the device
     between its parts and adds their seconds under "decoder", "ctc",
@@ -101,6 +113,8 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
     Returns (tokens (B, K, max_len+1) int64 with sos at 0 and -1 padding,
     scores (B, K) float32); feed each row to tokens_to_list.
     """
+    if lm is not None and prefix_scorer is not None:
+        raise ValueError("lm and prefix_scorer are exclusive")
     cfg = model.cfg
     B, T2, _ = memory.shape
     K, V = beam_size, cfg.vocab_size
@@ -142,6 +156,10 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
             lm_logits, lm_next = lm.step(tokens[:, step], lm_state)
             new_lm = new_lm + torch.log_softmax(lm_logits, dim=-1).view(B, K, V)
             tick("lm")
+        elif prefix_scorer is not None:
+            raw = torch.as_tensor(prefix_scorer(tokens[:, : step + 1]), dtype=torch.float32)
+            new_lm = new_lm + raw.to(dev).view(B, K, V)
+            tick("lm")
 
         psi, _, r_new = ctc_prefix_scores(ctc_logp, enc_len, prefix_lens, last_tokens,
                                           r_state, cfg.blank_id)
@@ -169,8 +187,9 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
         tokens[:, step + 1] = tok.view(-1)
         ends = finished.gather(1, beam_idx) | (tok == cfg.eos_id)
         att_cum = new_att.view(B, K * V).gather(1, top_idx)
-        if lm is not None:
+        if lm is not None or prefix_scorer is not None:
             lm_cum = new_lm.view(B, K * V).gather(1, top_idx)
+        if lm is not None:
             lm_state = lm.reorder_state(lm_next, rows)
         scores = top_scores
         finished = ends
@@ -187,7 +206,7 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
 
 def beam_search_batched(model, feats, lengths, *, beam_size=10, max_len=100,
                         ctc_weight=0.3, penalty=0.0, lm=None, lm_weight=1.0,
-                        device="cuda", incremental=False):
+                        device="cuda", incremental=False, prefix_scorer=None):
     """Batched joint CTC/attention beam search: B independent searches in
     one (B x K)-wide loop, after one batched encoder pass.
 
@@ -195,7 +214,7 @@ def beam_search_batched(model, feats, lengths, *, beam_size=10, max_len=100,
     `device`, which must be the model's (and the LM's). `device` defaults
     to "cuda" and raises without a card. Returns (tokens (B, K,
     max_len+1), scores (B, K)); see beam_search_encoded (`incremental`
-    runs the KV-cached decoder).
+    runs the KV-cached decoder, `prefix_scorer` is the host LM hook).
     """
     dev = resolve_device(device)
     feats = torch.as_tensor(feats).to(device=dev, dtype=torch.float32)
@@ -205,7 +224,7 @@ def beam_search_batched(model, feats, lengths, *, beam_size=10, max_len=100,
     return beam_search_encoded(
         model, memory, enc_len, ctc_logits, beam_size=beam_size, max_len=max_len,
         ctc_weight=ctc_weight, penalty=penalty, lm=lm, lm_weight=lm_weight,
-        incremental=incremental)
+        incremental=incremental, prefix_scorer=prefix_scorer)
 
 
 def tokens_to_list(tokens, scores, eos_id):

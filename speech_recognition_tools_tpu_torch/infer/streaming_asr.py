@@ -26,7 +26,9 @@ Exactness contract: a model whose config has `attn_chunk > 0` and
 
 The step reuses the offline model's modules (the encoder's `embed`, each
 block's norms, attention, FFNs and conv module, `after_norm`,
-`ctc_head`), so it needs no weights of its own. Its caches stay on the
+`ctc_head`), so it needs no weights of its own, and it runs an encoder
+quantized by infer/quantize.py as it is (int8 codes and scales on the
+device, dequantized at each use). Its caches stay on the
 device as a dict of tensors; a round sends x, the positional rows, n_valid and update to the
 device and brings the CTC rows back (and the encoder rows when memory is
 stored), nothing per stream. A fully masked key row (an idle or fresh
@@ -742,13 +744,15 @@ class OnlineASRPipeline:
                        int8: bool = False, device="cuda", **kwargs):
         """The pipeline of a model directory alone: checkpoint and vocab
         through recog_e2e._load, front-end and global CMVN from its
-        serving.json (FdlpConfig() defaults and no CMVN without one)."""
-        if int8:
-            raise NotImplementedError("int8 encoder weights (infer/quantize.py) are not yet ported "
-                                      "(ROADMAP Queue 1 item 3: int8 serving)")
+        serving.json (FdlpConfig() defaults and no CMVN without one).
+        int8=True quantizes the encoder's weights (infer/quantize.py)."""
         from speech_recognition_tools_tpu_torch.cli.recog_e2e import _load
 
         model, _cfg, vocab = _load(model_dir, ckpt, device=device)
+        if int8:
+            from speech_recognition_tools_tpu_torch.infer.quantize import quantize_encoder
+
+            quantize_encoder(model)
         manifest = read_serving_manifest(model_dir)
         fdlp_cfg, mean, std = None, None, None
         if manifest is not None:

@@ -24,6 +24,12 @@ the exact inverses (a state_dict, or any dict of tensors keyed like one,
 such as an optimizer's moments -> the flax tree with its outer
 {"params": ...}): every mapping is a transpose, reshape or split, so the
 round trip is bit-exact.
+A TransformerASR tree whose encoder was quantized by the JAX package's
+infer/quantize.py (kernels replaced by {int8_q, int8_scale}) maps onto
+the port's quantized modules (infer/quantize.py: the codes and the scales,
+laid out as the weight, under `<module>.parametrizations.weight.original`
+and `.0.scale`; load it with `load_quantized_state_dict`) and back, codes
+and scales bit for bit.
 `adam_state_to_jax` / `adam_state_from_jax` carry train/optim.py's Adam
 state in the layout flax's `to_state_dict` gives the optax state, and
 `optim_state_to_jax` / `optim_state_from_jax` that of any of its
@@ -162,6 +168,10 @@ def _dense(leaves, path, sd, name):
     sd[f"{name}.bias"] = _t(leaves.take(*path, "bias"))
 
 
+# a weight quantized by infer/quantize.py: its int8 codes and float32 scales
+_Q_ORIGINAL = ".parametrizations.weight.original"
+_Q_SCALE = ".parametrizations.weight.0.scale"
+
 # TransformerASR: each flax leaf is one state_dict entry under one of these
 # layout maps, (flax -> port, port -> flax); `h`, the attention's head
 # count, is read only on the way to flax.
@@ -264,7 +274,17 @@ def transformer_asr_from_jax(params: dict) -> dict:
     sd = {}
     for path, name, kind in _asr_layout(_count_layers(names, "encoder"),
                                         _count_layers(names, "decoder"), conformer):
-        sd[name] = _t(_KINDS[kind][0](leaves.take(*path), None))
+        if (*path, "int8_q") in leaves.left:  # infer/quantize.py's int8 form
+            q, s = leaves.take(*path, "int8_q"), leaves.take(*path, "int8_scale")
+            fwd = _KINDS[kind][0]
+            qt = np.ascontiguousarray(fwd(np.asarray(q), None))
+            # the scales laid out as the codes; axis 0 is the output channel
+            st = fwd(np.broadcast_to(np.asarray(s, np.float32), q.shape), None)
+            base = name[: -len(".weight")]
+            sd[base + _Q_ORIGINAL] = torch.tensor(qt.astype(np.int8))
+            sd[base + _Q_SCALE] = _t(st[(slice(None),) + (slice(0, 1),) * (st.ndim - 1)])
+        else:
+            sd[name] = _t(_KINDS[kind][0](leaves.take(*path), None))
     leaves.done()
     return sd
 
@@ -276,12 +296,33 @@ def transformer_asr_to_jax(sd: dict, aheads: int) -> dict:
     head_dim)."""
     n_enc = len({k.split(".")[2] for k in sd if k.startswith("encoder.layers.")})
     n_dec = len({k.split(".")[2] for k in sd if k.startswith("decoder.layers.")})
-    layout = _asr_layout(n_enc, n_dec, conformer="encoder.layers.0.mhsa.query.weight" in sd)
-    if set(sd) != {name for _, name, _ in layout}:
+    conformer = any(k.startswith("encoder.layers.0.mhsa.query.") for k in sd)
+    layout = _asr_layout(n_enc, n_dec, conformer=conformer)
+
+    def int8(name):  # a weight in infer/quantize.py's int8 form
+        return name.endswith(".weight") and name[: -len(".weight")] + _Q_ORIGINAL in sd
+
+    want = set()
+    for _, name, _ in layout:
+        base = name[: -len(".weight")]
+        want |= {base + _Q_ORIGINAL, base + _Q_SCALE} if int8(name) else {name}
+    if set(sd) != want:
         raise ValueError("state_dict keys do not match the TransformerASR layout: "
-                         f"{sorted(set(sd) ^ {name for _, name, _ in layout})}")
-    flat = {path: np.ascontiguousarray(_KINDS[kind][1](_np(sd[name]), aheads))
-            for path, name, kind in layout}
+                         f"{sorted(set(sd) ^ want)}")
+    flat = {}
+    for path, name, kind in layout:
+        inv = _KINDS[kind][1]
+        if int8(name):
+            base = name[: -len(".weight")]
+            q = _np(sd[base + _Q_ORIGINAL])
+            s = inv(np.broadcast_to(_np(sd[base + _Q_SCALE]), q.shape), aheads)
+            # flax's scale keeps the contraction axes at length 1; q/k/v
+            # kernels (in, heads, head_dim) contract over axis 0 only
+            n_red = s.ndim - (2 if kind == "heads_in" else 1)
+            flat[path] = {"int8_q": np.ascontiguousarray(inv(q, aheads)),
+                          "int8_scale": np.ascontiguousarray(s[(slice(0, 1),) * n_red])}
+        else:
+            flat[path] = np.ascontiguousarray(inv(_np(sd[name]), aheads))
     return {"params": _nest(flat)}
 
 

@@ -1,8 +1,8 @@
 """Character vocabulary and transcripts for e2e ASR (host code).
 
 Copy of speech_recognition_tools_tpu/io/text.py::build_char_vocab,
-encode_text, decode_tokens, save_vocab, load_vocab and read_text_file
-(the data2json / char-dict
+build_word_vocab, encode_words, encode_text, decode_tokens, save_vocab,
+load_vocab and read_text_file (the data2json / char-dict
 stage of the reference's ESPnet recipes, run_fdlp_e1.sh:305-331). The JAX
 package's io/__init__ imports jax, so the port keeps its own copy.
 """
@@ -19,6 +19,28 @@ def build_char_vocab(texts):
         vocab[c] = len(vocab)
     vocab["<sos/eos>"] = len(vocab)
     return vocab
+
+
+def build_word_vocab(texts, size=65000):
+    """Word vocabulary for word RNNLMs (the reference's use_wordlm=true
+    branch caps it at lm_vocabsize, e2e/wsj/run_fdlp_e1.sh:39): the size-2
+    most frequent words (ties broken alphabetically) under {'<eos>': 0,
+    '<unk>': 1}, the conventions decode/wordlm.py and the word-LM trainer
+    share."""
+    from collections import Counter
+
+    counts = Counter(w for t in texts for w in t.split())
+    vocab = {"<eos>": 0, "<unk>": 1}
+    for w, _ in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0])):
+        if len(vocab) >= size:
+            break
+        vocab[w] = len(vocab)
+    return vocab
+
+
+def encode_words(text, vocab):
+    unk = vocab["<unk>"]
+    return [vocab.get(w, unk) for w in text.split()]
 
 
 def encode_text(text, vocab):

@@ -91,8 +91,9 @@ def test_import_checks_cover_the_serving_modules():
     serving path's modules, the LM-training stage's, the hybrid decode
     end's, the MFCC / mel front-ends', the modulation spectrum's and the
     high-precision FDLP and incremental decoder's, the checkpoint
-    importer's, the recurrent zoo's and the PM stage's, and the conv zoo's
-    and the adaptation, lifelong-decoding and continual-learning decode's
+    importer's, the recurrent zoo's and the PM stage's, the conv zoo's
+    and the adaptation, lifelong-decoding and continual-learning decode's,
+    and int8 serving's, the look-ahead word LM's and the forced aligner's
     are among what they walk."""
     mods = set(_port_modules())
     for m in ("dsp.streaming", "infer.streaming_asr", "eval.wer", "cli.recog_e2e",
@@ -110,7 +111,8 @@ def test_import_checks_cover_the_serving_modules():
               "models.apc", "models.vae", "models.curl", "cli.train_am", "cli.tandem_feats",
               "cli.pm_score_cli", "infer.pm_score", "infer.mmeasure", "train.optim",
               "models.cnn", "models.modnet", "infer.adapt", "infer.lifelong", "cli.adapt_am",
-              "cli.lifelong_decode"):
+              "cli.lifelong_decode", "infer.quantize", "decode.wordlm", "cli.force_align",
+              "cli.ali_utils"):
         assert f"speech_recognition_tools_tpu_torch.{m}" in mods, m
 
 

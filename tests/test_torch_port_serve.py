@@ -419,24 +419,11 @@ def test_recog_e2e_api_cl_matches_jax(cl_dirs, tmp_path, dtype):
     assert outs[0] == outs[1] and len(outs[0].splitlines()) == 3
 
 
-@pytest.mark.parametrize("extra", [["--word_lm_dir", "x"], ["--ring_attention", "2"]],
-                         ids=["extra1", "extra2"])
+@pytest.mark.parametrize("extra", [["--ring_attention", "2"]], ids=["extra2"])
 def test_recog_e2e_unported_flags_raise(model_dir, tmp_path, extra):
     d, _, _ = model_dir
     with pytest.raises(NotImplementedError):
         trecog.main([d, str(tmp_path), str(tmp_path / "o.txt"), "--device", "cpu", *extra])
-
-
-def test_unported_serving_options_raise(model_dir, tmp_path):
-    d, _, _ = model_dir
-    with pytest.raises(NotImplementedError):
-        tserve.make_server(d, int8=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tserve.main([d, "--int8", "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        ttranscribe.main([d, str(tmp_path / "x.wav"), "--int8", "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        OnlineASRPipeline.from_model_dir(d, int8=True, device="cpu")
 
 
 def test_default_device_raises_without_a_card(model_dir):
