@@ -186,7 +186,8 @@ exits non-zero. Phases:
      of 2 batches of 32) -> pm_score_cli pm (reconstruction and
      --contrastive) and mmeasure: ms a PM step, scores per second, scores
      card against CPU (ZOO_OUT_REL). (b) every other arch of the recurrent
-     half at train_am's defaults (ZOO_TRAIN) over phase 6's egs, with
+     half at train_am's defaults (ZOO_TRAIN) but ZOO_B_LAYERS layers over
+     phase 6's egs, with
      vae --use_transformer (over phase 7's 80-band egs), multimod
      --multi_egs_dirs, feedforward
      --frame_egs, vae_encoded / curl_encoded on the vae / curl just trained
@@ -225,16 +226,31 @@ exits non-zero. Phases:
      a seeded 65,000-word lexicon in phase 5's letters, train_lm.main
      --unit word at its defaults for one epoch (first-step loss card vs CPU,
      1e-5), recog_e2e.main --word_lm_dir --word_lm_dict with phase 5's model
-     on 8 of phase 3's utterances (FDLP on K1, counted), offline and
+     on WORDLM_UTTS of phase 3's utterances (FDLP on K1, counted),
+     max_len WORDLM_MAX_LEN, offline and
      --streaming, hypotheses card vs CPU on 2, ms a search step by part and
      the LRU hit rate. (c) forced alignment at timit_hybrid's front-end:
      phase 4's utterances through FDLP (K1, counted, then held to its plain
      version) and CMVN, a seeded 200-word lexicon over 48 phones,
      force_align.main at its defaults with ALIGN_FLAGS, one batch's DP card
      vs CPU, ali_utils convert and combine;
-  16. one JSON line describing every kernel of the port (`launches` is the
+  16. (a) stage 0 of reverb_hybrid.json at full width (enhance_phase):
+     simulate_corpus makes 8 utterances of 4-8 s at 8 channels, SNR 20 dB,
+     as a data dir with clean_wav.scp / noise_wav.scp; maybe_mask_model
+     trains the BLSTM mask net (513 bins, hidden 256) for one epoch,
+     run_enhancement runs WPE (512/128, 10 taps, delay 3, 5 iterations) ->
+     masks -> GEV + BAN + phase correction (1024/256) -> iSTFT, se_scores
+     returns all eight metrics as numbers; ms a mask-net step, ms an
+     utterance by part, the real-time factor, device busy; card vs CPU
+     (WPE, masks, beamformed STFT up to one global phase, first-step
+     loss); one chime4_hybrid utterance (6 channels, no WPE). (b)
+     compute_fdlp_spectrogram at wsj_fdlp_e2e over the enhanced wavs with
+     --add_noise and --add_reverb small_room (seeded noise and RIR wavs in
+     a temporary working directory): K1 counted and held to its plain
+     version, features card vs CPU;
+  17. one JSON line describing every kernel of the port (`launches` is the
      hybrid main path's count, `launches_by_path` each path's);
-  17. the run's time, the card's name and power limit again, then the last
+  18. the run's time, the card's name and power limit again, then the last
      line: {"ok": true, "device": {...}}.
 """
 
@@ -428,9 +444,12 @@ PM_TRAIN = dict(num_layers=2, num_layers_dec=2, hidden_dim=512, bn_dim=64, batch
                 epochs=1)
 PM_UTTS = 32
 # phase 13 (b): every other arch of the recurrent half at train_am's
-# defaults over phase 6's egs (each utterance twice: 2 batches of 32)
+# defaults over phase 6's egs (each utterance twice: 2 batches of 32), with
+# the depth cut from train_am's 3 layers to ZOO_B_LAYERS to make room for
+# phase 16
 ZOO_TRAIN = dict(num_layers=3, num_layers_dec=1, hidden_dim=512, bn_dim=64, comp_num=2,
                  batch_size=32, epochs=1)
+ZOO_B_LAYERS = 2
 # card against CPU on the ZOO_CPU_UTTS shortest utterances, the same weights
 # and the same noise (drawn on the CPU): the first-step loss within
 # ZOO_LOSS_REL (phase 6's limit for the rnn step), dump_outputs and the PM
@@ -478,16 +497,43 @@ INT8_VS_F32_ATOL, INT8_CTC_AGREE = 0.65, 0.9
 INT8_CONF_STREAMS = 5
 # phase 15 (b): a word LM over the reference's lm_vocabsize (65,000,
 # e2e/wsj/run_fdlp_e1.sh:39, <eos> and <unk> included), transcripts of 8-16
-# words, phase 5's model on 8 of phase 3's utterances, beam 10
+# words, phase 5's model on WORDLM_UTTS of phase 3's utterances, beam 10;
+# the searches cut from 8 utterances at max_len 50 to make room for phase 16
 WORDLM_VOCAB = 65000
 WORDLM_TEXT_WORDS = (8, 17)
-WORDLM_UTTS, WORDLM_MAX_LEN, WORDLM_CPU_UTTS = 8, 50, 2
+WORDLM_UTTS, WORDLM_MAX_LEN, WORDLM_CPU_UTTS = 4, 25, 2
 # phase 15 (c): TIMIT's phone set size, a seeded 200-word lexicon, and the
 # Kaldi topology tier (3-state phones, 5-state silence, word-position
 # silence) at force_align's CLI defaults otherwise
 ALIGN_PHONES, ALIGN_WORDS = 48, 200
 ALIGN_FLAGS = ["--states_per_phone", "3", "--silence_phone", "0", "--silence_states", "5",
                "--wpd_silence"]
+# phase 16 (a): stage 0 of recipes/configs/reverb_hybrid.json (:9-13, read
+# from the file: WPE 512/128, taps 10, delay 3, 5 iterations; GEV + BAN over
+# 1024/256, phase correction on by default; the BLSTM mask net, 513 bins,
+# hidden 256) on ENH_UTTS utterances of 4-8 s, ENH_CHANNELS channels, made
+# by dsp/simulate.py::simulate_corpus at the reference's
+# Generate_mcTrainData_cut.m SNRdB; the mask net trained for ENH_MASK_EPOCHS
+# (cut from the config's default 8); se_scores with all eight metrics; one
+# utterance of chime4_hybrid.json:9-13 (6 channels, no WPE). Card against
+# CPU, on the shortest utterance: the WPE output within ENH_WPE_REL of its
+# peak (the pipeline's WPE solves its 80 x 80 systems in complex128, then
+# rounds to float32), the beamformed STFT on the same STFT and masks in
+# complex128 after one global phase within ENH_BF_REL of its peak (8 x 8
+# Cholesky and eigh per bin on two libraries), mask-net masks within
+# ENH_MASK_ATOL and its first-step loss within ENH_LOSS_REL (float32 LSTM
+# loops over ~250-500 frames)
+ENH_UTTS, ENH_CHANNELS, ENH_SNR_DB, ENH_MASK_EPOCHS = 8, 8, 20.0, 1
+ENH_SECONDS = (4.0, 8.0)
+ENH_METRICS = ["pesq", "stoi", "estoi", "srmr", "fwsegsnr", "cepsdist", "lpcllr", "sdr"]
+ENH_WPE_REL, ENH_BF_REL, ENH_MASK_ATOL, ENH_LOSS_REL = 1e-5, 1e-6, 1e-4, 1e-5
+# phase 16 (b): the featgen CLI at wsj_fdlp_e2e's front-end over (a)'s
+# enhanced wavs with --add_noise <seeded noise>,AUG_SNR --add_reverb
+# small_room; features card against CPU on AUG_CPU_UTTS utterances at
+# phase 3's limits
+AUG_SNR, AUG_CPU_UTTS = 10, 2
+WSJ_FDLP_FLAGS = ["--nfilters", "80", "--order", "150", "--fduration", "1.5",
+                  "--coeff_num", "100", "--coeff_range", "1,100"]
 
 # (order, coeff_num) of the front-ends in recipes/configs: wsj/chime4/
 # conformer e2e, timit_hybrid, reverb
@@ -3208,8 +3254,9 @@ def pm_stage_phase(rng, dev, tmp):
 
 def zoo_phase(dev, tmp):
     """Phase 13 (b): every other arch of the recurrent half through
-    train_am.main on the card at its defaults (3 layers, num_layers_dec 1,
-    hidden 512, bn 64, comp_num 2) over phase 6's timit_hybrid egs (20-dim
+    train_am.main on the card at its defaults (num_layers_dec 1, hidden
+    512, bn 64, comp_num 2) but ZOO_B_LAYERS layers (cut from 3) over phase
+    6's timit_hybrid egs (20-dim
     FDLP, 3,376 classes; each utterance twice: one epoch of 2 batches of
     32): vae also with --use_transformer (over phase 7's 80-band
     wsj_fdlp_e2e egs: flax's 16 heads need a width they divide; 64
@@ -3259,7 +3306,7 @@ def zoo_phase(dev, tmp):
     _, e2e_utts = load_egs(j("e2e_egs"))
     build_egs(((k, f) for k, f, _ in sorted(e2e_utts, key=lambda u: len(u[1]))[:ZOO_CPU_UTTS]),
               j("e2e_small"))
-    base = _argv(ZOO_TRAIN)
+    base = _argv(dict(ZOO_TRAIN, num_layers=ZOO_B_LAYERS))
     # name -> (train_am flags, egs, dump egs (+ flags) or None)
     cases = {
         "linear": (["--arch", "linear"], "zoo_egs", ["zoo_small"]),
@@ -4357,6 +4404,306 @@ def align_phase(xh, lh, rng, dev, tmp):
     return launches
 
 
+def _scp_dict(path):
+    with open(path) as f:
+        return dict(line.strip().split(None, 1) for line in f if line.strip())
+
+
+def enhance_phase(rng, dev, tmp, seed):
+    """Phase 16. (a) Stage 0 of reverb_hybrid.json (:9-13) at full width:
+    dsp/simulate.py::simulate_corpus makes ENH_UTTS utterances of 4-8 s at
+    ENH_CHANNELS channels and SNR ENH_SNR_DB, laid out as a recipe's data
+    dir (a multichannel wav.scp, clean_wav.scp, noise_wav.scp); then, as
+    recipes/run_corpus.py:470-513 runs them, maybe_mask_model trains the
+    BLSTM mask net (ENH_MASK_EPOCHS epoch), run_enhancement enhances every
+    utterance (WPE -> mask net -> GEV + BAN + phase correction -> iSTFT)
+    and se_scores scores them with all eight metrics, each a number. ms a
+    mask-net step, ms an utterance by part, the real-time factor and the
+    device's busy share; card against CPU on the shortest utterance (WPE,
+    mask-net masks, the beamformed STFT up to one global phase, the first
+    step's loss); one utterance at chime4_hybrid.json:9-13 (6 channels, no
+    WPE: the even-count median on the card). (b) compute_fdlp_spectrogram
+    at wsj_fdlp_e2e's front-end over (a)'s enhanced wavs with --add_noise
+    <seeded noise>,AUG_SNR --add_reverb small_room, run from a directory
+    holding the seeded noises/ and RIR/ wavs: K1 counted and held to its
+    plain version on the path's lags, features card against CPU on
+    AUG_CPU_UTTS utterances. Returns K1's launches over (b)'s featgen."""
+    import argparse
+
+    from scipy.io.wavfile import write as wav_write
+
+    from speech_recognition_tools_tpu_torch.cli import compute_fdlp_spectrogram
+    from speech_recognition_tools_tpu_torch.cli.common import RIR_FILES, load_signals
+    from speech_recognition_tools_tpu_torch.dsp.fdlp import FdlpConfig, fdlp_lags
+    from speech_recognition_tools_tpu_torch.dsp.simulate import simulate_corpus, synth_rir
+    from speech_recognition_tools_tpu_torch.enhance import pipeline
+    from speech_recognition_tools_tpu_torch.enhance.mask_model import (
+        BLSTMMaskEstimator,
+        estimate_masks,
+        train_mask_estimator,
+    )
+    from speech_recognition_tools_tpu_torch.enhance.stft import istft, stft
+    from speech_recognition_tools_tpu_torch.io.kaldi_ark import read_ark
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import lpc_cepstra
+
+    t_phase = time.perf_counter()
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    sr = 16000
+
+    def recipe_enhancement(name):
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "recipes",
+                               "configs", name)) as f:
+            return json.load(f)["enhancement"]
+
+    enh = recipe_enhancement("reverb_hybrid.json")
+    enh["beamform"]["mask_epochs"] = ENH_MASK_EPOCHS
+    enh_c4 = recipe_enhancement("chime4_hybrid.json")
+    bf = enh["beamform"]
+    assert int(bf["nch"]) == ENH_CHANNELS and not enh_c4.get("wpe"), (enh, enh_c4)
+    size, shift = int(bf.get("size", 1024)), int(bf.get("shift", 256))
+
+    # ---- the corpus, as a recipe's data dir ----
+    x, lens = speechlike_batch(rng, ENH_UTTS, *ENH_SECONDS)
+    clean = [(f"enh{b}", x[b, : lens[b]] / 32768.0) for b in range(ENH_UTTS)]
+    t0 = time.perf_counter()
+    simulate_corpus(clean, j("enh_sim"), fs=sr, n_channels=ENH_CHANNELS, snr_db=ENH_SNR_DB,
+                    seed=seed, device=dev)
+    t_sim = time.perf_counter() - t0
+    data = j("enh_data")
+    os.makedirs(data)
+    chans = [_scp_dict(j("enh_sim", f"wav_ch{c}.scp")) for c in range(ENH_CHANNELS)]
+    with open(os.path.join(data, "wav.scp"), "w") as f:
+        f.writelines(f"{u} {' '.join(ch[u] for ch in chans)}\n" for u in chans[0])
+    for src, dst in (("clean.scp", "clean_wav.scp"), ("noise.scp", "noise_wav.scp")):
+        with open(j("enh_sim", src)) as fi, open(os.path.join(data, dst), "w") as fo:
+            fo.write(fi.read())
+    audio_s = float(lens.sum()) / sr
+
+    # ---- stage 0: the mask net, the enhancement, the scores ----
+    logs = []
+    exp = j("enh_exp")
+    os.makedirs(exp)
+    t0 = time.perf_counter()
+    mask_fn = pipeline.maybe_mask_model(enh, exp, train_dir=data, srate=sr, log=logs.append,
+                                        device=dev)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    assert mask_fn is not None and any("trained on" in s for s in logs), logs
+    assert os.path.exists(os.path.join(exp, "mask_model", "state.msgpack"))
+    model = mask_fn.model
+    t0 = time.perf_counter()
+    out_scp = pipeline.run_enhancement(os.path.join(data, "wav.scp"), j("enh_out"), enh, sr,
+                                       mask_fn=mask_fn, log=logs.append, device=dev)
+    t_enh = time.perf_counter() - t0
+    enhanced = pipeline.read_multichannel_scp(out_scp)
+    assert list(enhanced) == [u for u, _ in clean]
+    t0 = time.perf_counter()
+    scores = pipeline.se_scores(out_scp, os.path.join(data, "clean_wav.scp"), ENH_METRICS, sr,
+                                log=logs.append)
+    t_scores = time.perf_counter() - t0
+    assert all(isinstance(scores[m], float) and np.isfinite(scores[m]) for m in ENH_METRICS), (
+        scores, logs)
+    for line in logs:
+        log(f"[enh] {line}")
+
+    # ---- ms an utterance by part (a second pass, synchronised) ----
+    mc = pipeline.read_multichannel_scp(os.path.join(data, "wav.scp"))
+    sigs = {u: pipeline.load_channels(e, sr).astype(np.float32) for u, e in mc.items()}
+    parts = []
+    for u, sig in sigs.items():
+        xs = torch.as_tensor(sig, device=dev)
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+
+        xw = pipeline.maybe_wpe(xs, enh)
+        mark()
+        X = stft(xw, size=size, shift=shift)
+        sm, nm = mask_fn(X.abs())
+        mark()
+        Yf = pipeline.beamform_stft(X, enh, sm, nm)
+        mark()
+        y = istft(Yf.T, size=size, shift=shift)[: xs.shape[-1]]
+        mark()
+        assert torch.isfinite(y).all(), u
+        parts.append(np.diff(t) * 1e3 / (sig.shape[1] / sr))  # ms per audio s
+    parts = np.median(np.asarray(parts), axis=0)
+    short = min(sigs, key=lambda u: sigs[u].shape[1])
+    sig = sigs[short]
+    prof = device_breakdown("enhance_utterance, reverb_hybrid stage 0, one utterance of "
+                            f"{sig.shape[1] / sr:.2f} s",
+                            lambda: pipeline.enhance_utterance(sig, enh, mask_fn, device=dev))
+    busy = f"{100 * prof[1] / prof[0]:.1f}%" if prof else "not measured"
+
+    # ---- the mask net: ms a step, first-step loss card against CPU ----
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    cl_path = _scp_dict(os.path.join(data, "clean_wav.scp"))[short]
+    nz_path = _scp_dict(os.path.join(data, "noise_wav.scp"))[short]
+    c_sig = pipeline.load_channels([cl_path], sr)[0]
+    n_sig = pipeline.load_channels([nz_path], sr)[0]
+    losses, step_s = [], []
+    for d, n_ep in ((str(dev), 3), ("cpu", 1)):  # three timed steps on the card
+        ex = (stft(c_sig, size, shift, device=d), stft(n_sig, size, shift, device=d))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(train_mask_estimator([ex], model.bins, hidden=model.hidden, epochs=n_ep,
+                                           init_state=init, device=d)[2])
+        torch.cuda.synchronize()
+        step_s.append((time.perf_counter() - t0) / n_ep)
+    losses = {str(dev): losses[0], "cpu": losses[1]}
+    t_step = step_s[0]
+    loss_rel = _rel(losses[str(dev)][0], losses["cpu"][0])
+    assert np.isfinite(losses["cpu"][0]) and loss_rel <= ENH_LOSS_REL, losses
+
+    # ---- card against CPU on the shortest utterance ----
+    xw_d = pipeline.maybe_wpe(torch.as_tensor(sig, device=dev), enh).cpu()
+    xw_c = pipeline.maybe_wpe(torch.as_tensor(sig), enh)
+    assert torch.isfinite(xw_d).all()
+    wpe_rel = ((xw_d - xw_c).abs().max() / xw_c.abs().max()).item()
+    assert wpe_rel <= ENH_WPE_REL, wpe_rel
+    X_c = stft(xw_c, size, shift)
+    cpu_model = BLSTMMaskEstimator(model.bins, model.hidden, device="cpu")
+    cpu_model.load_state_dict(init)
+    cpu_model.eval()
+    m_c = estimate_masks(cpu_model, X_c.abs())
+    m_d = estimate_masks(model, X_c.abs().to(dev))
+    mask_err = max((a.cpu() - b).abs().max().item() for a, b in zip(m_d, m_c))
+    assert mask_err <= ENH_MASK_ATOL, mask_err
+    # the beamformer on the same STFT and masks, card against CPU, in
+    # complex128 (asserted) and in the pipeline's complex64 (logged): a mask
+    # net trained for one epoch gives speech and noise masks near 0.5, so
+    # the two PSDs nearly agree and the generalised eigenvectors are
+    # ill-conditioned; complex64 eigh on two devices picks other vectors in
+    # such bins, and the phase correction carries each difference on to the
+    # bins above it
+    bf_rel = {}
+    for dt in (torch.complex128, torch.complex64):
+        X_t, m_t = X_c.to(dt), [m.to(dt.to_real()) for m in m_c]
+        Y_c = pipeline.beamform_stft(X_t, enh, *m_t).numpy()
+        Y_d = pipeline.beamform_stft(X_t.to(dev), enh, *(m.to(dev) for m in m_t)).cpu().numpy()
+        assert np.isfinite(Y_d).all(), dt
+        bf_rel[dt] = _phase_aligned_rel(Y_d, Y_c)
+    assert bf_rel[torch.complex128] <= ENH_BF_REL, bf_rel
+
+    # ---- one utterance at chime4_hybrid's stage 0: 6 channels, no WPE ----
+    six = sig[:6]
+    y4 = pipeline.enhance_utterance(six, enh_c4, mask_fn, device=dev)
+    assert y4.shape == (six.shape[1],) and np.isfinite(y4).all()
+    mag6 = stft(torch.as_tensor(six, device=dev), size, shift).abs()
+    with torch.no_grad():
+        per_ch = model(torch.stack([m / m.mean().clamp_min(1e-12) for m in mag6]),
+                       torch.full((6,), mag6.shape[1], device=dev))[0]
+    median6 = np.median(per_ch.cpu().numpy(), axis=0)  # numpy's even-count rule
+    even_err = np.abs(estimate_masks(model, mag6)[0].cpu().numpy() - median6).max()
+    assert even_err <= 1e-6, even_err
+    # its beamformer card against CPU in complex128 on the card's masks
+    X6 = stft(torch.as_tensor(six, dtype=torch.float64), size, shift)
+    m6 = [m.double().cpu() for m in estimate_masks(model, mag6)]
+    Y4_c = pipeline.beamform_stft(X6, enh_c4, *m6).numpy()
+    Y4_d = pipeline.beamform_stft(X6.to(dev), enh_c4, *(m.to(dev) for m in m6)).cpu().numpy()
+    c4_rel = _phase_aligned_rel(Y4_d, Y4_c)
+    assert c4_rel <= ENH_BF_REL, c4_rel
+    t_a = time.perf_counter() - t_phase
+
+    # ---- (b) augmented featgen of the enhanced wavs ----
+    aug = j("enh_aug")
+    os.makedirs(os.path.join(aug, "noises"))
+    os.makedirs(os.path.join(aug, "RIR"))
+    # a float32 noise wav: an int16 one's energy wraps in the CLIs'
+    # np.mean(ns**2), in both packages (ROADMAP Queue 3)
+    noise = (rng.randn(20 * sr) * 3000).astype(np.float32)
+    wav_write(os.path.join(aug, "noises", "enhnoise.wav"), sr, noise)
+    rir = synth_rir(2, sr, 0.3, generator=torch.Generator().manual_seed(seed), device="cpu")
+    wav_write(os.path.join(aug, RIR_FILES["small_room"]), sr,
+              (rir.numpy().T * 16000).astype(np.int16))
+    flags = [*WSJ_FDLP_FLAGS, "--add_noise", f"enhnoise,{AUG_SNR}", "--add_reverb",
+             "small_room", "--write_utt2num_frames"]
+    with open(out_scp) as f:
+        head = f.readlines()[:AUG_CPU_UTTS]
+    with open(j("enh_out_head.scp"), "w") as f:
+        f.writelines(head)
+    cwd = os.getcwd()
+    os.chdir(aug)
+    try:
+        np.random.seed(seed)
+        lpc_cepstra.launches = 0
+        t0 = time.perf_counter()
+        compute_fdlp_spectrogram.main([out_scp, j("aug_card"), *flags, "--device", str(dev)])
+        torch.cuda.synchronize()
+        t_aug = time.perf_counter() - t0
+        launches = lpc_cepstra.launches
+        np.random.seed(seed)
+        t0 = time.perf_counter()
+        compute_fdlp_spectrogram.main([j("enh_out_head.scp"), j("aug_cpu"), *flags,
+                                       "--device", "cpu"])
+        t_aug_cpu = time.perf_counter() - t0
+        np.random.seed(seed)
+        signals = load_signals(argparse.Namespace(scp=out_scp, add_noise=f"enhnoise,{AUG_SNR}",
+                                                  add_reverb="small_room"), sr)
+    finally:
+        os.chdir(cwd)
+    assert launches > 0, "the augmented featgen did not launch K1"
+    card = dict(read_ark(j("aug_card.ark")))
+    cpu = dict(read_ark(j("aug_cpu.ark")))
+    assert sorted(card) == sorted(u for u, _ in clean) and len(cpu) == AUG_CPU_UTTS
+    assert all(np.isfinite(v).all() and v.shape[1] == 80 for v in card.values())
+    feat_err = max(np.abs(card[k] - cpu[k]).max() for k in cpu)
+    for k in cpu:
+        np.testing.assert_allclose(card[k], cpu[k], rtol=1e-3, atol=2e-3)
+    e2e = FdlpConfig(nfilters=80, order=150, fduration=1.5, coeff_num=100, coeff_range="1,100")
+    nmax = max(len(s) for _, s in signals)
+    xb = np.zeros((len(signals), nmax), np.float32)
+    for b, (_, s) in enumerate(signals):
+        xb[b, : len(s)] = s
+    lb = np.asarray([len(s) for _, s in signals], np.int32)
+    r, _ = fdlp_lags(xb, lb, e2e, device=dev)
+    # order-150 FDLP lags: phase 2's limits for them
+    k1_err = _k1_on_path("augmented featgen of the enhanced wavs", r.reshape(-1, r.shape[-1]),
+                         e2e.order, e2e.coeff_num, NEAR_PERIODIC_TOL, NEAR_PERIODIC_REL)
+
+    log(f"[enh] reverb_hybrid stage 0: {ENH_UTTS} utterances of {ENH_SECONDS[0]:g}-"
+        f"{ENH_SECONDS[1]:g} s ({audio_s:.1f} s audio) x {ENH_CHANNELS} channels, SNR "
+        f"{ENH_SNR_DB:g} dB; WPE {enh['wpe']}; beamform {bf}")
+    log(f"[enh] simulate_corpus {t_sim:.2f} s; maybe_mask_model (STFT pairs + {ENH_UTTS} steps "
+        f"x {ENH_MASK_EPOCHS} epoch) {t_train:.2f} s; a mask-net step (B = 1, "
+        f"{sig.shape[1] / sr:.2f} s, hidden {model.hidden}, {model.bins} bins) "
+        f"{t_step * 1e3:.1f} ms; first-step loss card {losses[str(dev)][0]:.6f}, rel to cpu "
+        f"{loss_rel:.2e} (limit {ENH_LOSS_REL})")
+    log(f"[enh] run_enhancement {t_enh:.2f} s = {audio_s / t_enh:.2f}x real time "
+        f"(RTF {t_enh / audio_s:.4f}); ms per audio s by part (median over utterances): WPE "
+        f"{parts[0]:.2f}, STFT + masks {parts[1]:.2f}, beamforming {parts[2]:.2f}, synthesis "
+        f"{parts[3]:.2f}; device busy {busy}")
+    log(f"[enh] se_scores {t_scores:.2f} s: " + ", ".join(
+        f"{m} {scores[m]:.4f}" for m in ENH_METRICS))
+    log(f"[enh] card vs cpu on {short} ({sig.shape[1] / sr:.2f} s): WPE {wpe_rel:.2e} of the "
+        f"peak (limit {ENH_WPE_REL}); mask-net masks "
+        f"{mask_err:.2e} (limit {ENH_MASK_ATOL}); beamformed STFT after one global phase "
+        f"{bf_rel[torch.complex128]:.2e} of the peak in complex128 (limit {ENH_BF_REL}), "
+        f"{bf_rel[torch.complex64]:.2e} in complex64 (not held: ill-conditioned bins)")
+    log(f"[enh] chime4_hybrid stage 0 (6 channels, no WPE): even-count median on the card "
+        f"against numpy's {even_err:.1e}; beamformed STFT card vs cpu in complex128 "
+        f"{c4_rel:.2e}; (a) took "
+        f"{t_a:.1f} s")
+    log(f"[enh] (b) compute_fdlp_spectrogram wsj_fdlp_e2e --add_noise enhnoise,{AUG_SNR} "
+        f"--add_reverb small_room over the {ENH_UTTS} enhanced wavs: {t_aug:.2f} s on the card "
+        f"({audio_s / t_aug:.1f}x real time), K1 launches {launches}, max|kernel - plain| "
+        f"{k1_err:.3e}; features card vs cpu on {AUG_CPU_UTTS} utterances {feat_err:.3e} "
+        f"(rtol 1e-3, atol 2e-3; CPU {t_aug_cpu:.2f} s); phase 16 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _phase_aligned_rel(got, want):
+    """|got e^{-j phi} - want| / max|want|, phi = angle(vdot(want, got)):
+    the GEV weights' global phase is arbitrary (ROADMAP Queue 3)."""
+    phi = np.angle(np.vdot(want, got))
+    return float(np.abs(got * np.exp(-1j * phi) - want).max() / np.abs(want).max())
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4652,8 +4999,12 @@ def main():
         wordlm_launches = wordlm_phase(x, lens, e2e, rng, dev, tmp)
         align_launches = align_phase(xh, lh, rng, dev, tmp)
         log(f"[phase15] {time.perf_counter() - t15:.2f} s")
+        # ---- 16. stage-0 enhancement, SE scores, augmented featgen ----
+        t16 = time.perf_counter()
+        enh_launches = enhance_phase(rng, dev, tmp, args.seed)
+        log(f"[phase16] {time.perf_counter() - t16:.2f} s")
 
-    # ---- 16. every kernel of the port ----
+    # ---- 17. every kernel of the port ----
     log(json.dumps({"kernels": [{
         "name": "lpc_cepstra",
         "route": "cuda",
@@ -4672,7 +5023,8 @@ def main():
                              "int8_serve": int8_launches[0],
                              "int8_transcribe": int8_launches[1],
                              "int8_conformer_stream": int8_launches[2],
-                             "wordlm_decode": wordlm_launches, "align": align_launches},
+                             "wordlm_decode": wordlm_launches, "align": align_launches,
+                             "enhanced_augmented_featgen": enh_launches},
         "max_abs_err": main_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -4687,7 +5039,7 @@ def main():
     # names the card and its power limit beside the numbers above
     log(smi)
 
-    # ---- 17. contract line ----
+    # ---- 18. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

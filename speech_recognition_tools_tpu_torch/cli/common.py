@@ -1,46 +1,108 @@
 """Shared CLI machinery: scp -> padded wav batches -> featgen -> ark.
 
 Port of speech_recognition_tools_tpu/cli/common.py for the featgen CLIs
-(FDLP, MFCC, mel): `load_signals` (wav and segments scp), `run_batched`
-(length-bucketed batches, feeding a ThroughputMeter), `finish`, and the
-shared `--profile_dir` flag (`add_profiling_arg`, `profiled_extraction`).
-The noise / reverb augmentation and data parallelism are not yet ported:
-`check_unported` raises on their flags.
+(FDLP, MFCC, mel, modulation spectrum): `load_signals` (wav and segments
+scp, then the reference CLIs' host-side augmentation: --add_noise
+'type,snr' | diff, --add_reverb small_room | medium_room | large_room),
+`run_batched` (length-bucketed batches, feeding a ThroughputMeter),
+`finish`, and the shared `--profile_dir` flag (`add_profiling_arg`,
+`profiled_extraction`). Data parallelism is not yet ported:
+`check_unported` raises on its flag.
+
+The augmentation is the JAX CLIs' numpy code, on the host: the noise
+segment's offset comes from numpy's global np.random.rand(), so a caller
+that seeds numpy gets the JAX CLI's offsets, and the reverb alignment is
+numpy's direct convolve / correlate (an FFT convolution could move the
+correlation's argmax at a tie). Noise is read from noises/<type>.wav and
+RIRs from ./RIR/, relative to the working directory, as in the reference.
 """
 
 import sys
 
 import numpy as np
 
+from speech_recognition_tools_tpu_torch.dsp.augment import DIFF_FIR
 from speech_recognition_tools_tpu_torch.io.kaldi_ark import write_ark_scp
 from speech_recognition_tools_tpu_torch.io.scp import read_scp, read_segments
 from speech_recognition_tools_tpu_torch.io.wav import read_wav_scp_entry
 
 
-AUGMENT_ITEM = ("ROADMAP Queue 1 item 4: enhancement, augmentation, evaluation and "
-                "alignment (dsp/augment.py, dsp/simulate.py)")
 PARALLEL_ITEM = "ROADMAP Queue 1 item 5: the parallel paths"
+
+# the reference CLIs' RIR wavs (computeFDLPSpectrogram.py), relative to the
+# working directory; channel 1 is the one convolved
+RIR_FILES = {
+    "small_room": "./RIR/RIR_SmallRoom1_near_AnglA.wav",
+    "medium_room": "./RIR/RIR_MediumRoom1_far_AnglA.wav",
+    "large_room": "./RIR/RIR_LargeRoom1_far_AnglA.wav",
+}
 
 
 def check_unported(args):
-    """Raise NotImplementedError, naming the ROADMAP item, for a featgen
-    flag whose module is not yet ported: --add_noise other than none /
-    clean, --add_reverb other than clean, --data_parallel. (`clean` adds
-    nothing in the JAX CLIs either.)"""
-    if getattr(args, "add_noise", None) not in (None, "none", "clean"):
-        raise NotImplementedError(f"--add_noise {args.add_noise} is not yet ported "
-                                  f"({AUGMENT_ITEM})")
-    if getattr(args, "add_reverb", None) not in (None, "clean"):
-        raise NotImplementedError(f"--add_reverb {args.add_reverb} is not yet ported "
-                                  f"({AUGMENT_ITEM})")
+    """Raise NotImplementedError, naming the ROADMAP item, for the featgen
+    flag whose module is not yet ported: --data_parallel."""
     if getattr(args, "data_parallel", False):
         raise NotImplementedError(f"--data_parallel is not yet ported ({PARALLEL_ITEM})")
 
 
+def _augmentation(args):
+    """(noise samples or None, noise SNR, RIR or None) of the flags."""
+    from scipy.io.wavfile import read as wav_read
+
+    noise = noise_snr = rir = None
+    add_noise = getattr(args, "add_noise", None)
+    if add_noise not in (None, "none", "clean", "diff"):
+        noise_info = add_noise.strip().split(",")
+        _, noise = wav_read(f"noises/{noise_info[0]}.wav")
+        noise_snr = float(noise_info[1])
+    add_reverb = getattr(args, "add_reverb", None)
+    if add_reverb not in (None, "clean"):
+        _, rir = wav_read(RIR_FILES[add_reverb])
+        rir = rir[:, 1] / 2.0**15
+    return noise, noise_snr, rir
+
+
+def augment(args, raw):
+    """The JAX CLIs' host augmentation of [(utt, samples)], in order:
+    --add_noise diff (the FIR, mode 'same') or 'type,snr' (a segment of
+    noises/<type>.wav at an offset floor(np.random.rand() * (len(noise) -
+    len(sig))), scaled to the SNR), then --add_reverb (the RIR's
+    convolution, re-aligned at the cross-correlation peak). An int16
+    noise wav keeps its dtype, so its energy np.mean(ns**2) wraps in int16
+    and the gain is wrong or NaN, as in the JAX CLIs (ROADMAP Queue 3)."""
+    import scipy.signal
+
+    noise, noise_snr, rir = _augmentation(args)
+    add_noise = getattr(args, "add_noise", None)
+    out = []
+    for key, sig in raw:
+        if add_noise == "diff":
+            sig = scipy.signal.convolve(sig, DIFF_FIR, mode="same")
+        elif noise is not None:
+            off = int(np.floor(np.random.rand() * (len(noise) - len(sig))))
+            ns = noise[off : off + len(sig)]
+            e_s = np.mean(sig**2)
+            e_n = np.mean(ns**2)
+            alp = np.sqrt(e_s / (e_n * 10 ** (noise_snr / 10)))
+            sig = sig + alp * ns
+        if rir is not None:
+            full = np.convolve(sig, rir)
+            xxc = np.correlate(sig, full, "valid")
+            ind = len(xxc) - np.argmax(xxc)
+            sig = full[ind : ind + len(sig)]
+        out.append((key, sig))
+    return out
+
+
 def load_signals(args, srate):
     """[(utt, float64 samples)] from a wav scp, or from a Kaldi segments
-    file with --scp_type segment and --wav_scp. Unreadable entries are
-    skipped with a message, like the reference CLIs."""
+    file with --scp_type segment and --wav_scp, augmented as the flags say
+    (`augment`). Unreadable entries are skipped with a message, like the
+    reference CLIs."""
+    return augment(args, _read_signals(args, srate))
+
+
+def _read_signals(args, srate):
     raw = []
     if getattr(args, "scp_type", "wav") == "segment":
         wav_scp = getattr(args, "wav_scp", None)

@@ -6,10 +6,10 @@ computeFDLPSpectrogram.py :240-262), running the port on the card.
         wav.scp out/feats [--nfilters 80 --order 150 ...] [--device cpu]
 
 --profile_dir traces the extraction with torch.profiler; --precision high
-(alias mixed) computes in float64 from the window multiply on. Flags whose
-modules are not yet ported (--add_noise other than none / clean,
---add_reverb, --data_parallel) raise NotImplementedError naming their
-ROADMAP item.
+(alias mixed) computes in float64 from the window multiply on.
+--add_noise 'type,snr' | diff and --add_reverb augment each utterance on
+the host as the JAX CLI does (cli/common.py::augment). --data_parallel
+raises NotImplementedError naming its ROADMAP item.
 """
 
 import argparse
@@ -32,13 +32,13 @@ def get_parser():
     parser.add_argument("--overlap_fraction", type=float, default=0.25)
     parser.add_argument("--kaldi_cmd", default="copy-feats",
                         help="ignored: arks are written natively")
-    parser.add_argument("--add_reverb", help="not yet ported")
+    parser.add_argument("--add_reverb", help="clean|small_room|medium_room|large_room")
     parser.add_argument("--fbank_type", type=str, default="mel,1")
     parser.add_argument("--odd_mod_zero", action="store_true")
     parser.add_argument("--gamma_weight", type=str, default="None")
     parser.add_argument("--lifter_config", type=str, default=None)
     parser.add_argument("--write_utt2num_frames", action="store_true")
-    parser.add_argument("--add_noise", help="only none / clean are ported")
+    parser.add_argument("--add_noise", help="'type,snr' | clean | diff")
     parser.add_argument("--srate", type=int, default=16000)
     parser.add_argument("--batch_size", type=int, default=32)
     parser.add_argument("--bucket_seconds", type=float, default=1.0,

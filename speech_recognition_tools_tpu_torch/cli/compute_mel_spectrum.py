@@ -6,8 +6,9 @@ computeMelSpectrum.py :20-37), running the port on the card.
         wav.scp out/feats [--spectrum_type log --fbank_type mel,1 ...] \\
         [--scp_type segment --wav_scp wav.scp] [--device cpu]
 
---add_noise (other than none / clean), --add_reverb and --data_parallel
-raise NotImplementedError naming their ROADMAP item.
+--add_noise 'type,snr' | diff and --add_reverb augment on the host as the
+JAX CLI does; --data_parallel raises NotImplementedError naming its
+ROADMAP item.
 """
 
 import argparse
@@ -25,10 +26,10 @@ def get_parser():
     parser.add_argument("--fduration", type=float, default=0.02)
     parser.add_argument("--frate", type=int, default=100)
     parser.add_argument("--nfft", type=int, default=1024)
-    parser.add_argument("--add_reverb", help="not yet ported")
+    parser.add_argument("--add_reverb", help="clean|small_room|medium_room|large_room")
     parser.add_argument("--fbank_type", type=str, default="mel,1")
     parser.add_argument("--write_utt2num_frames", action="store_true")
-    parser.add_argument("--add_noise", help="only none / clean are ported")
+    parser.add_argument("--add_noise", help="'type,snr' | clean | diff")
     parser.add_argument("--srate", type=int, default=16000)
     parser.add_argument("--batch_size", type=int, default=32)
     parser.add_argument("--data_parallel", action="store_true", help="not yet ported")

@@ -4,9 +4,10 @@
     python -m speech_recognition_tools_tpu_torch.cli.compute_mfcc \\
         wav.scp out/feats [--nfilters 30 --context 4 ...] [--device cpu]
 
---add_noise (other than none / clean), --add_reverb and --data_parallel
-raise NotImplementedError naming their ROADMAP item; --kaldi_cmd is
-accepted and ignored (arks are written natively), as in the JAX CLI.
+--add_noise 'type,snr' | diff and --add_reverb augment on the host as the
+JAX CLI does; --data_parallel raises NotImplementedError naming its
+ROADMAP item; --kaldi_cmd is accepted and ignored (arks are written
+natively), as in the JAX CLI.
 """
 
 import argparse
@@ -22,8 +23,8 @@ def get_parser():
     parser.add_argument("--frate", type=int, default=100)
     parser.add_argument("--context", type=int)
     parser.add_argument("--nfft", type=int, default=1024)
-    parser.add_argument("--add_reverb", help="not yet ported")
-    parser.add_argument("--add_noise", default="none", help="only none / clean are ported")
+    parser.add_argument("--add_reverb", help="clean|small_room|medium_room|large_room")
+    parser.add_argument("--add_noise", default="none", help="'type,snr' | none | clean | diff")
     parser.add_argument("--kaldi_cmd", help="ignored: arks written natively")
     parser.add_argument("--srate", type=int, default=16000)
     parser.add_argument("--batch_size", type=int, default=32)

@@ -7,8 +7,9 @@ card.
         wav.scp out/feats [--set_unity_gain --complex_modulation ...] \\
         [--scp_type segment --wav_scp wav.scp] [--device cpu]
 
---profile_dir traces the extraction with torch.profiler. --add_reverb and
---data_parallel raise NotImplementedError naming their ROADMAP item.
+--profile_dir traces the extraction with torch.profiler. --add_reverb
+convolves each utterance with the room's RIR on the host, as the JAX CLI
+does; --data_parallel raises NotImplementedError naming its ROADMAP item.
 """
 
 import argparse
@@ -28,7 +29,7 @@ def get_parser():
     parser.add_argument("--order", type=int, default=50)
     parser.add_argument("--fduration", type=float, default=0.5)
     parser.add_argument("--frate", type=int, default=100)
-    parser.add_argument("--add_reverb", help="not yet ported")
+    parser.add_argument("--add_reverb", help="clean|small_room|medium_room|large_room")
     parser.add_argument("--fbank_type", type=str, default="mel,1")
     parser.add_argument("--set_unity_gain", action="store_true")
     parser.add_argument("--no_window", action="store_true")

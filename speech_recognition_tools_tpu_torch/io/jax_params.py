@@ -48,6 +48,8 @@ rate-scale convs' `rates` and `scales` themselves, a Linear a Dense ([in,
 out] kernel), a MultiHeadAttention flax's MultiHeadDotProductAttention
 (query/key/value kernels (D, heads, hd), out kernel (heads, hd, D)), a
 LayerNorm its scale and bias. Both directions are exact and raise on a leaf left over.
+`mask_model_from_jax` / `mask_model_to_jax` are the pair for
+enhance/mask_model.py's estimators.
 """
 
 import numpy as np
@@ -501,6 +503,20 @@ def zoo_to_jax(model, sd: dict) -> dict:
     for path, name, kind, h in rows:
         flat[path] = np.array(_KINDS[kind][1](_np(sd[name]), h))
     return {"params": _nest(flat)}
+
+
+def mask_model_from_jax(model, params: dict) -> dict:
+    """The flax tree of enhance/mask_model.py's BLSTMMaskEstimator or
+    SimpleFWMaskEstimator (a JAX-saved `<exp>/mask_model` checkpoint's
+    params, with or without the outer {"params": ...}) -> `model`'s
+    state_dict. The port's estimators carry flax's names (blstm/fwd/cell,
+    blstm/bwd/cell, relu_1, ...), so this is zoo_from_jax."""
+    return zoo_from_jax(model, params)
+
+
+def mask_model_to_jax(model, sd: dict) -> dict:
+    """Inverse of mask_model_from_jax: {"params": ...} of numpy arrays."""
+    return zoo_to_jax(model, sd)
 
 
 # ------------------------------------------------------------ optimizer state

@@ -1,13 +1,13 @@
-"""ctypes bindings to the native WFST decoder and binary-ark reader.
+"""ctypes bindings to the native WFST decoder, binary-ark reader and PESQ.
 
 The port's counterpart of speech_recognition_tools_tpu/io/native.py for
-`native/fst_decode.cpp` (one-best, N-best and lattice decoding over a text
-WFST) and `native/ark_io.cpp` (the binary-ark reader), the C++ of the
+`native/ark_io.cpp` (the binary-ark reader), `native/fst_decode.cpp`
+(one-best, N-best and lattice decoding over a text WFST) and
+`native/pesq.cpp` (the P.862-style PESQ scorer, `pesq`), the C++ of the
 repo's `native/` directory, unchanged. They are built with `g++` at first
 use into `_build/` beside the port's CUDA kernel (git-ignored); the file
 name carries a hash of the sources and the flags, so an edited source is
-rebuilt and an unchanged one reused. PESQ (`native/pesq.cpp`) is not
-built: nothing in the port calls it yet.
+rebuilt and an unchanged one reused.
 
 Unlike the JAX package's loader, nothing here degrades: a failed build
 raises with the compiler's output, and `read_ark_native` never falls back
@@ -28,7 +28,8 @@ import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NATIVE_DIR = os.path.join(os.path.dirname(_PKG_DIR), "native")
-SOURCES = tuple(os.path.join(NATIVE_DIR, f) for f in ("ark_io.cpp", "fst_decode.cpp"))
+SOURCES = tuple(os.path.join(NATIVE_DIR, f) for f in ("ark_io.cpp", "fst_decode.cpp",
+                                                          "pesq.cpp"))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -38,6 +39,7 @@ _load_lock = threading.Lock()
 _I32, _I64, _F32 = ctypes.c_int32, ctypes.c_int64, ctypes.c_float
 _P = ctypes.c_void_p
 _PI32, _PF32 = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)
+_PF64 = ctypes.POINTER(ctypes.c_double)
 # (name, restype, argtypes) of every function the port calls
 _SIGNATURES = (
     ("ark_open", _P, [ctypes.c_char_p]),
@@ -60,6 +62,7 @@ _SIGNATURES = (
     ("lat_get_links", None, [_P, _PI32, _PI32, _PI32, _PF32, _PF32]),
     ("lat_get_finals", None, [_P, _PI32, _PF32]),
     ("lat_free", None, [_P]),
+    ("pesq_mos", ctypes.c_double, [_PF64, _I64, _PF64, _I64, ctypes.c_double]),
 )
 
 
@@ -130,3 +133,16 @@ def read_ark_native(path):
             yield key_buf.value.decode(), mat
     finally:
         lib.ark_close(handle)
+
+
+def pesq(reference, degraded, fs: float) -> float:
+    """PESQ-style MOS of `degraded` against `reference` (native/pesq.cpp).
+    Raises ValueError when the signals are too short to score."""
+    lib = load()
+    ref = np.ascontiguousarray(reference, np.float64)
+    deg = np.ascontiguousarray(degraded, np.float64)
+    mos = lib.pesq_mos(ref.ctypes.data_as(_PF64), len(ref), deg.ctypes.data_as(_PF64),
+                       len(deg), float(fs))
+    if mos < -100:
+        raise ValueError("signals too short for PESQ")
+    return float(mos)

@@ -206,14 +206,33 @@ def test_cli_matches_jax_cli(tmp_path):
     assert [ln.split()[0] for ln in scp_lines] == list(ref)
 
 
-def test_cli_rejects_unported_flags(tmp_path):
+def test_cli_rejects_unported_flags(tmp_path, monkeypatch):
     """--precision high is ported (tests/test_torch_port_precision.py holds
-    its ark to the JAX CLI's); augmentation and data parallelism are not."""
+    its ark to the JAX CLI's), and so is augmentation: --add_noise
+    babble,10 with --add_reverb small_room, from a directory holding seeded
+    noises/ and RIR/ wavs and with numpy seeded 0 before each CLI, gives the
+    JAX CLI's ark (RTOL, ATOL). --data_parallel is not ported and raises
+    before anything is written."""
+    from test_torch_port_augment import write_augmentation_files
+
+    from speech_recognition_tools_tpu.cli import compute_fdlp_spectrogram as jcli
+    from speech_recognition_tools_tpu.io import read_ark
     from speech_recognition_tools_tpu_torch.cli import compute_fdlp_spectrogram as tcli
 
     scp = _write_wavs(tmp_path)
-    for extra in (["--add_noise", "babble,10"], ["--add_reverb", "small_room"],
-                  ["--data_parallel"]):
-        with pytest.raises(NotImplementedError):
-            tcli.main([str(scp), str(tmp_path / "x"), "--device", "cpu", *extra])
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tcli.main([str(scp), str(tmp_path / "x"), "--device", "cpu", "--data_parallel"])
     assert not os.path.exists(str(tmp_path / "x.ark"))
+    write_augmentation_files(str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    flags = ["--nfilters", "8", "--add_noise", "babble,10", "--add_reverb", "small_room"]
+    np.random.seed(0)
+    jcli.main([str(scp), str(tmp_path / "jax"), *flags])
+    np.random.seed(0)
+    tcli.main([str(scp), str(tmp_path / "port"), *flags, "--device", "cpu"])
+    ref = dict(read_ark(str(tmp_path / "jax.ark")))
+    got = dict(read_ark(str(tmp_path / "port.ark")))
+    assert list(got) == list(ref)
+    for key in ref:
+        assert got[key].shape == ref[key].shape and got[key].dtype == np.float32
+        np.testing.assert_allclose(got[key], ref[key], rtol=RTOL, atol=ATOL)

@@ -330,22 +330,50 @@ def test_profile_dir_writes_a_trace(tmp_path, cli, capsys):
 
 @pytest.mark.parametrize("cli", ["compute_mfcc", "compute_mel_spectrum",
                                  "compute_fdlp_spectrogram"])
-@pytest.mark.parametrize("extra,match", [(["--add_noise", "babble,10"], "item 4"),
-                                         (["--add_noise", "diff"], "item 4"),
-                                         (["--add_reverb", "small_room"], "item 4"),
+@pytest.mark.parametrize("extra,match", [(["--add_noise", "babble,10"], None),
+                                         (["--add_noise", "diff"], None),
+                                         (["--add_reverb", "small_room"], None),
                                          (["--data_parallel"], "item 5")],
                          ids=["extra0-item 9", "extra1-item 9", "extra2-item 9",
                               "extra3-item 10"])
-def test_unported_featgen_flags_raise(tmp_path, cli, extra, match):
-    """Each unported flag raises NotImplementedError naming its ROADMAP
-    item, before anything is read or written."""
+def test_unported_featgen_flags_raise(tmp_path, monkeypatch, cli, extra, match):
+    """--data_parallel, not yet ported, raises NotImplementedError naming
+    its ROADMAP item before anything is read or written. The augmentation
+    flags are ported: from a directory holding seeded noises/babble.wav and
+    RIR/ wavs, with numpy seeded 0 before each CLI, the port's ark matches
+    the JAX CLI's (MFCC and mel atol 1e-4 as above; FDLP at
+    tests/test_torch_port_fdlp.py's rtol 1e-3, atol 2e-3)."""
     import importlib
 
     mod = importlib.import_module(f"speech_recognition_tools_tpu_torch.cli.{cli}")
-    with pytest.raises(NotImplementedError, match=match):
-        mod.main([str(tmp_path / "missing.scp"), str(tmp_path / "x"), *extra, "--device",
-                  "cpu"])
-    assert not os.listdir(tmp_path)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            mod.main([str(tmp_path / "missing.scp"), str(tmp_path / "x"), *extra, "--device",
+                      "cpu"])
+        assert not os.listdir(tmp_path)
+        return
+    from test_torch_port_augment import write_augmentation_files
+
+    from speech_recognition_tools_tpu.io import read_ark
+
+    jmod = importlib.import_module(f"speech_recognition_tools_tpu.cli.{cli}")
+    scp = _write_wavs(tmp_path)
+    write_augmentation_files(str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    flags = ["--nfilters", "8"] if cli == "compute_fdlp_spectrogram" else []
+    np.random.seed(0)
+    jmod.main([str(scp), str(tmp_path / "jax"), *flags, *extra])
+    np.random.seed(0)
+    mod.main([str(scp), str(tmp_path / "port"), *flags, *extra, "--device", "cpu"])
+    if cli != "compute_fdlp_spectrogram":
+        _arks_close(tmp_path, atol=1e-4)
+        return
+    want = dict(read_ark(str(tmp_path / "jax.ark")))
+    got = dict(read_ark(str(tmp_path / "port.ark")))
+    assert list(got) == list(want)
+    for key in want:
+        assert got[key].shape == want[key].shape
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-3, atol=2e-3)
 
 
 def test_clean_augmentation_flags_add_nothing(tmp_path):

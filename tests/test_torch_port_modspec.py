@@ -317,12 +317,27 @@ def test_cli_matches_jax_cli(tmp_path, flags):
     assert (tmp_path / "port.len").read_text() == (tmp_path / "jax.len").read_text()
 
 
-def test_cli_rejects_unported_flags(tmp_path):
+def test_cli_rejects_unported_flags(tmp_path, monkeypatch):
+    """--data_parallel is not ported and raises, naming item 5, before
+    anything is written. --add_reverb is: from a directory holding seeded
+    RIR/ wavs, the ark matches the JAX CLI's at LOOSE."""
+    from test_torch_port_augment import write_augmentation_files
+
+    from speech_recognition_tools_tpu.cli import compute_modulation_spectrum as jcli
+    from speech_recognition_tools_tpu.io import read_ark
     from speech_recognition_tools_tpu_torch.cli import compute_modulation_spectrum as tcli
 
     scp = _write_wavs(tmp_path)
-    for extra, item in ((["--add_reverb", "small_room"], "item 4"),
-                        (["--data_parallel"], "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            tcli.main([str(scp), str(tmp_path / "x"), "--device", "cpu", *extra])
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tcli.main([str(scp), str(tmp_path / "x"), "--device", "cpu", "--data_parallel"])
     assert not (tmp_path / "x.ark").exists()
+    write_augmentation_files(str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    jcli.main([str(scp), str(tmp_path / "jax"), "--add_reverb", "small_room"])
+    tcli.main([str(scp), str(tmp_path / "port"), "--add_reverb", "small_room", "--device", "cpu"])
+    ref = dict(read_ark(str(tmp_path / "jax.ark")))
+    got = dict(read_ark(str(tmp_path / "port.ark")))
+    assert list(got) == list(ref)
+    for key in ref:
+        assert got[key].shape == ref[key].shape and got[key].dtype == np.float32
+        _close(got[key], ref[key], LOOSE)

@@ -93,8 +93,9 @@ def test_import_checks_cover_the_serving_modules():
     high-precision FDLP and incremental decoder's, the checkpoint
     importer's, the recurrent zoo's and the PM stage's, the conv zoo's
     and the adaptation, lifelong-decoding and continual-learning decode's,
-    and int8 serving's, the look-ahead word LM's and the forced aligner's
-    are among what they walk."""
+    and int8 serving's, the look-ahead word LM's and the forced aligner's,
+    and the enhancement chain's, its metrics', the augmentation's and the
+    corpus simulation's are among what they walk."""
     mods = set(_port_modules())
     for m in ("dsp.streaming", "infer.streaming_asr", "eval.wer", "cli.recog_e2e",
               "cli.serve", "cli.serve_client", "cli.transcribe",
@@ -112,19 +113,23 @@ def test_import_checks_cover_the_serving_modules():
               "cli.pm_score_cli", "infer.pm_score", "infer.mmeasure", "train.optim",
               "models.cnn", "models.modnet", "infer.adapt", "infer.lifelong", "cli.adapt_am",
               "cli.lifelong_decode", "infer.quantize", "decode.wordlm", "cli.force_align",
-              "cli.ali_utils"):
+              "cli.ali_utils", "enhance", "enhance.stft", "enhance.masks",
+              "enhance.beamforming", "enhance.delay_sum", "enhance.wpe", "enhance.onchip",
+              "enhance.mask_model", "enhance.pipeline", "eval", "eval.enhancement_metrics",
+              "eval.srmr", "eval.info_theory", "dsp.augment", "dsp.simulate", "io.wav"):
         assert f"speech_recognition_tools_tpu_torch.{m}" in mods, m
 
 
 def test_native_library_builds_only_into_the_port(monkeypatch, tmp_path):
-    """io/native.py compiles native/ark_io.cpp and native/fst_decode.cpp
-    into the port's _build/ (the JAX loader's native/build/ is not
-    touched), and a failed build raises instead of falling back."""
+    """io/native.py compiles native/ark_io.cpp, native/fst_decode.cpp and
+    native/pesq.cpp into the port's _build/ (the JAX loader's native/build/
+    is not touched), and a failed build raises instead of falling back."""
     from speech_recognition_tools_tpu_torch.io import native
 
     assert os.path.dirname(native.library_path()) == os.path.join(PORT, "_build")
     assert [os.path.relpath(s, REPO) for s in native.SOURCES] == [
-        os.path.join("native", "ark_io.cpp"), os.path.join("native", "fst_decode.cpp")]
+        os.path.join("native", "ark_io.cpp"), os.path.join("native", "fst_decode.cpp"),
+        os.path.join("native", "pesq.cpp")]
     assert os.path.exists(native.build()) and native.load() is native.load()
     bad = tmp_path / "bad.cpp"
     bad.write_text("this is not C++\n")
