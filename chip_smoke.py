@@ -248,9 +248,32 @@ exits non-zero. Phases:
      --add_noise and --add_reverb small_room (seeded noise and RIR wavs in
      a temporary working directory): K1 counted and held to its plain
      version, features card vs CPU;
-  17. one JSON line describing every kernel of the port (`launches` is the
+  17. the port's recipe drivers (recipe_phase): (a) run_corpus at
+     wsj_fdlp_e2e.json (80 bands, order 150, 1.5 s; the 12/6 transformer,
+     adim 256, 4 heads, FFN 2048; the 1 x 1000 GRU RNNLM; beam 10, ctc
+     0.3, lm 1.0, --jit_decode at batch 8), stages 1-5 with
+     --profile_stages, on a corpus from the port's make_synth_corpus
+     (--seed, train 0.125 h, dev and test 1 min, 16 kHz), cut through
+     --set am.epochs=1 lm.epochs=1 decode.max_len=30: K1 counted and held
+     to its plain version on stage 1's lags, each stage's seconds and peak
+     memory (no stage starts with more than RECIPE_CARRY_BYTES left by the
+     stages before it), the WER line, then --stage 5 again: the same
+     hypotheses, no stage 1-4 file rewritten. (b) run_corpus at
+     timit_hybrid.json (20 bands, order 50, 0.5 s; 3 x 512 GRU over the
+     corpus's 27 classes; the lexicon's WFST decode at prior_weight 0.8;
+     the 2 + 2 x 512 pm_ae, bn 64), stages 1-6 on the same corpus, cut to
+     am.epochs=1 pm.epochs=1; stage 5 again with --device cpu on a copy:
+     log-likelihoods within RECIPE_LL_REL of their scale, hypotheses by
+     phase 9's rule. (c) recipes/demo.py at its defaults: Viterbi and
+     argmax FER, K1 counted. (d) recipes/reverb_demo.py at REVERB_DEMO_ARGS:
+     SE scores of noisy and enhanced audio, K1 counted at stage 4, the
+     hypothesis file. (e) io/prefetch.py's prefetch_to_device on the card
+     (batches in order and equal to the host's; the producer's error
+     raised at the consumer) and cli/babysit.py around a command that
+     crashes once, then succeeds;
+  18. one JSON line describing every kernel of the port (`launches` is the
      hybrid main path's count, `launches_by_path` each path's);
-  18. the run's time, the card's name and power limit again, then the last
+  19. the run's time, the card's name and power limit again, then the last
      line: {"ok": true, "device": {...}}.
 """
 
@@ -534,6 +557,33 @@ ENH_WPE_REL, ENH_BF_REL, ENH_MASK_ATOL, ENH_LOSS_REL = 1e-5, 1e-6, 1e-4, 1e-5
 AUG_SNR, AUG_CPU_UTTS = 10, 2
 WSJ_FDLP_FLAGS = ["--nfilters", "80", "--order", "150", "--fduration", "1.5",
                   "--coeff_num", "100", "--coeff_range", "1,100"]
+
+# phase 17: the port's recipe drivers on a corpus from the port's
+# make_synth_corpus (16 kHz; at --seed 0 train 0.125 h is 69 utterances, 3
+# batches of 32; dev and test 1 min each); run_corpus at wsj_fdlp_e2e and
+# timit_hybrid, read from recipes/configs, with these cuts through --set;
+# the hybrid stage 5 card against CPU at phase 9's limits (log-likelihoods
+# within RECIPE_LL_REL of their scale, WFST hypotheses identical or
+# DECODE_COST_TOL); a stage may start with at most RECIPE_CARRY_BYTES in
+# use beyond what the card held before the run (the featgen's cached
+# constants, 7.4 MiB at wsj_fdlp_e2e, and the libraries' state: 10-26 MiB
+# on an H100 80GB HBM3), and each stage after the first with at most
+# RECIPE_GROWTH_BYTES more than the second (0.5-0.8 MiB there): no model
+# stays, the smallest being timit_hybrid's AM at 15 MiB; the reverb
+# demo at its own widths and its default 8 mask-net epochs (one epoch's
+# binary noise masks leave bins empty and its GEV + BAN output NaN,
+# ROADMAP Queue 3)
+RECIPE_CORPUS = ["--train_hours", "0.125", "--dev_minutes", "1", "--test_minutes", "1"]
+RECIPE_E2E_CUTS = ["am.epochs=1", "lm.epochs=1", "decode.max_len=30"]
+RECIPE_HYB_CUTS = ["am.epochs=1", "pm.epochs=1"]
+RECIPE_LL_REL = 1e-4
+# K1 against its plain version on stage 1's lags of that corpus (each phone
+# two partials over AR noise: near-periodic, order-150 rows worse
+# conditioned than phase 2's): ~4x the first reading (1.05e-2 and 6.4e-2
+# at wsj_fdlp_e2e on an H100 80GB HBM3 at 700 W; PERF.md §6)
+RECIPE_K1_TOL, RECIPE_K1_REL = 4e-2, 0.25
+RECIPE_CARRY_BYTES, RECIPE_GROWTH_BYTES = 32 << 20, 8 << 20
+REVERB_DEMO_ARGS = ["--num_utts", "5", "--e2e_epochs", "1"]
 
 # (order, coeff_num) of the front-ends in recipes/configs: wsj/chime4/
 # conformer e2e, timit_hybrid, reverb
@@ -1759,6 +1809,39 @@ def _cost_of(dec, ll, words, nbest=50):
     return None
 
 
+def _wfst_hyps_agree(tag, graph, hyp_card, hyp_cpu, ll_g, ll_c, keys):
+    """decode_wfst's hypotheses over the card's and the CPU's arks: each
+    hypothesis file holds every key, and a hypothesis that differs may cost
+    at most DECODE_COST_TOL more under the CPU ark than the CPU's own
+    (graph: build-graph's directory; ll_g / ll_c: {utt: log-likelihoods}).
+    Returns ({"card": {utt: text}, "cpu": ...}, the keys that differ)."""
+    from speech_recognition_tools_tpu_torch.decode.wfst import WfstDecoder
+
+    hyp = {}
+    for name, path in (("card", hyp_card), ("cpu", hyp_cpu)):
+        with open(path) as f:
+            hyp[name] = dict((ln.split(maxsplit=1) + [""])[:2] for ln in f.read().splitlines())
+        assert sorted(hyp[name]) == sorted(keys), hyp[name]
+    differ = [k for k in keys if hyp["card"][k] != hyp["cpu"][k]]
+    if differ:
+        dec = WfstDecoder(os.path.join(graph, "HCLG.txt"))
+        w2i = {}
+        with open(os.path.join(graph, "words.txt")) as f:
+            for ln in f:
+                w, i = ln.split()
+                w2i[w] = int(i)
+        for k in differ:
+            ids = {n: [w2i[w] for w in hyp[n][k].split()] for n in ("card", "cpu")}
+            costs = {(n, a): _cost_of(dec, lls[k], ids[n])
+                     for n in ("card", "cpu") for a, lls in (("card", ll_g), ("cpu", ll_c))}
+            log(f"[{tag}] {k} differs: card {hyp['card'][k]!r} / cpu "
+                f"{hyp['cpu'][k]!r}; costs (hypothesis, ark): {costs}")
+            worse = costs[("card", "cpu")]
+            assert worse is not None and worse - costs[("cpu", "cpu")] <= DECODE_COST_TOL, (
+                k, costs)
+    return hyp, differ
+
+
 def hybrid_decode_phase(rng, dev, tmp):
     """The hybrid recipe's decode end (run_corpus.py :696-702, :804-869) at
     timit_hybrid on phase 6's train_am checkpoint and egs: featgen (K1) ->
@@ -1779,7 +1862,6 @@ def hybrid_decode_phase(rng, dev, tmp):
         dump_outputs,
         train_ngram,
     )
-    from speech_recognition_tools_tpu_torch.decode.wfst import WfstDecoder
     from speech_recognition_tools_tpu_torch.dsp.fdlp import FdlpConfig, fdlp_spectrogram_batch
     from speech_recognition_tools_tpu_torch.io.egs import build_egs, load_egs
     from speech_recognition_tools_tpu_torch.io.kaldi_ark import read_ark
@@ -1839,28 +1921,8 @@ def hybrid_decode_phase(rng, dev, tmp):
     assert all(np.isfinite(v).all() for v in ll_g.values()), "non-finite log-likelihoods"
     ll_err = max(float(np.abs(ll_g[k] - ll_c[k]).max()) for k in keys)
     assert ll_err <= DECODE_LL_ATOL, ll_err
-    hyp = {}
-    for name in ("card", "cpu"):
-        with open(j(f"hyp_{name}.txt")) as f:
-            hyp[name] = dict((ln.split(maxsplit=1) + [""])[:2] for ln in f.read().splitlines())
-        assert sorted(hyp[name]) == keys, hyp[name]
-    differ = [k for k in keys if hyp["card"][k] != hyp["cpu"][k]]
-    if differ:
-        dec = WfstDecoder(j("graph", "HCLG.txt"))
-        w2i = {}
-        with open(j("graph", "words.txt")) as f:
-            for ln in f:
-                w, i = ln.split()
-                w2i[w] = int(i)
-        for k in differ:
-            ids = {n: [w2i[w] for w in hyp[n][k].split()] for n in ("card", "cpu")}
-            costs = {(n, a): _cost_of(dec, lls[k], ids[n])
-                     for n in ("card", "cpu") for a, lls in (("card", ll_g), ("cpu", ll_c))}
-            log(f"[hybrid-decode] {k} differs: card {hyp['card'][k]!r} / cpu "
-                f"{hyp['cpu'][k]!r}; costs (hypothesis, ark): {costs}")
-            worse = costs[("card", "cpu")]
-            assert worse is not None and worse - costs[("cpu", "cpu")] <= DECODE_COST_TOL, (
-                k, costs)
+    hyp, differ = _wfst_hyps_agree("hybrid-decode", j("graph"), j("hyp_card.txt"),
+                                   j("hyp_cpu.txt"), ll_g, ll_c, keys)
     dec_ms = t["decode (card ark)"] / DECODE_UTTS * 1e3
     rtf = (t["dump_outputs (card)"] + t["decode (card ark)"]) / audio_s
     log(f"[hybrid-decode] timit_hybrid decode set: {DECODE_UTTS} utterances of 2-4 s "
@@ -4696,6 +4758,327 @@ def enhance_phase(rng, dev, tmp, seed):
     return launches
 
 
+# ---------------------------------------------------------------- phase 17
+
+
+def _captured(fn, *args):
+    """fn(*args) with its standard output kept in a buffer: returns (result,
+    text). On a failure the buffer's tail goes to stderr before the
+    exception propagates."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args)
+    except BaseException:
+        sys.stderr.write(buf.getvalue()[-6000:])
+        raise
+    return out, buf.getvalue()
+
+
+class _K1Recorder:
+    """Within `with`, dsp.fdlp's K1 entry records each launch's (rows,
+    order, lim) and keeps a copy of the first launch's lags, so that K1 can
+    be held to its plain version on a path's own lags afterwards. The
+    launches are still counted by the wrapper itself."""
+
+    def __enter__(self):
+        from speech_recognition_tools_tpu_torch.dsp import fdlp
+
+        self.mod, self.orig = fdlp, fdlp.lpc_cepstra
+        self.shapes, self.lags = [], None
+
+        def recorded(r, order, lim, *a, **kw):
+            self.shapes.append((r.shape[0], order, lim))
+            if self.lags is None:
+                self.lags, self.order, self.lim = r.detach().clone(), order, lim
+            return self.orig(r, order, lim, *a, **kw)
+
+        fdlp.lpc_cepstra = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.lpc_cepstra = self.orig
+
+    def summary(self):
+        rows = {}
+        for P, order, lim in self.shapes:
+            rows.setdefault((order, lim), []).append(P)
+        return "; ".join(f"order {o} lim {m}: {len(ps)} launches of {min(ps)}-{max(ps)} rows "
+                         f"({sum(ps)} in all)" for (o, m), ps in rows.items())
+
+
+def _run_recipe(argv, carry):
+    """run_corpus.main(argv) on the card with its output captured; `carry`
+    gains (stage, bytes allocated on the card at the stage's start) for
+    each stage: after the profiler's collection and with cuBLAS's
+    workspaces freed (the caching allocator holds one per handle, and the
+    backward pass's thread opens its own), so that what remains is what
+    the earlier stages left alive."""
+    from speech_recognition_tools_tpu_torch.recipes import run_corpus
+
+    orig = run_corpus.StageProfiler.mark
+
+    def mark(prof, label):
+        orig(prof, label)
+        torch._C._cuda_clearCublasWorkspaces()
+        carry.append((label, torch.cuda.memory_allocated()))
+
+    run_corpus.StageProfiler.mark = mark
+    try:
+        return _captured(run_corpus.main, argv)
+    finally:
+        run_corpus.StageProfiler.mark = orig
+
+
+def _log_profile(tag, exp, base, carry):
+    """Each stage's seconds, peak device memory (stage_profile.json) and the
+    memory it started with beyond `base`: within RECIPE_CARRY_BYTES, and
+    from the second stage on at most RECIPE_GROWTH_BYTES above the second
+    stage's start (the first stage leaves the featgen's cached constants and
+    the libraries' state; no later stage may keep an earlier one's models
+    alive)."""
+    with open(os.path.join(exp, "stage_profile.json")) as f:
+        prof = json.load(f)
+    starts = dict(carry)
+    second = starts[prof["stages"][1]["stage"]]
+    for i, st in enumerate(prof["stages"]):
+        mem = st["device_memory"]
+        start = starts[st["stage"]]
+        log(f"[{tag}] stage {st['stage']}: {st['seconds']:.2f} s, peak "
+            f"{mem['peak_bytes_in_use'] / 2**30:.3f} GiB ({base / 2**30:.3f} of it held "
+            f"before the run), started with {(start - base) / 2**20:.1f} MiB beyond that")
+        assert start - base <= RECIPE_CARRY_BYTES, (st["stage"], start - base)
+        assert i < 1 or start - second <= RECIPE_GROWTH_BYTES, (st["stage"], start - second)
+    return prof
+
+
+def recipe_phase(dev, tmp, seed):
+    """Phase 17: the port's recipe drivers on the card. (a) run_corpus at
+    recipes/configs/wsj_fdlp_e2e.json, stages 1-5 with --profile_stages,
+    on a make_synth_corpus corpus (RECIPE_CORPUS, --seed): FDLP (K1,
+    counted and held to its plain version on the stage's lags) -> dict,
+    egs, CMVN -> the 1 x 1000 RNNLM -> the 12/6 transformer -> beam 10 with
+    the LM, --jit_decode at batch 8 -> RESULTS; each stage's seconds and
+    peak memory; then --stage 5 again on the same expdir: the same
+    hypotheses, no file of stages 1-4 rewritten. (b) run_corpus at
+    timit_hybrid.json, stages 1-6, on the same corpus (27 classes from its
+    ali.pkl, the lexicon's WFST decode, the 2 + 2 x 512 pm_ae); stage 5 on
+    a copy of the expdir with --device cpu: log-likelihoods within
+    RECIPE_LL_REL of their scale, hypotheses by phase 9's rule. (c) the
+    demo recipe at its defaults: Viterbi and argmax FER. (d) the reverb
+    demo (REVERB_DEMO_ARGS): SE scores of noisy and enhanced audio, the
+    hypothesis file. (e) prefetch_to_device on the card and babysit around
+    a command that crashes once. Returns K1's launches by path."""
+    import pickle
+    import shutil
+
+    from speech_recognition_tools_tpu_torch.cli import babysit
+    from speech_recognition_tools_tpu_torch.io.kaldi_ark import read_ark
+    from speech_recognition_tools_tpu_torch.io.prefetch import prefetch_to_device
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import lpc_cepstra
+    from speech_recognition_tools_tpu_torch.recipes import (
+        demo,
+        make_synth_corpus,
+        reverb_demo,
+        run_corpus,
+    )
+
+    t_phase = time.perf_counter()
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    config = lambda name: os.path.join(  # noqa: E731
+        os.path.dirname(os.path.abspath(__file__)), "recipes", "configs", name)
+    launches = {}
+
+    # ---- the corpus ----
+    corpus = j("rc_corpus")
+    t0 = time.perf_counter()
+    _captured(make_synth_corpus.main, ["--out", corpus, "--seed", str(seed)] + RECIPE_CORPUS)
+    t_corpus = time.perf_counter() - t0
+    sizes = {}
+    for name in ("train", "dev", "test"):
+        with open(os.path.join(corpus, name, "ali.pkl"), "rb") as f:
+            ali = pickle.load(f)
+        sizes[name] = (len(ali), sum(len(v) for v in ali.values()) / 100.0)
+    log(f"[recipe] make_synth_corpus --seed {seed} {' '.join(RECIPE_CORPUS)}: " + ", ".join(
+        f"{k} {n} utterances ({s:.1f} s)" for k, (n, s) in sizes.items())
+        + f" in {t_corpus:.1f} s")
+
+    # ---- (a) the e2e branch at wsj_fdlp_e2e, stages 1-5 ----
+    e2e_exp = j("rc_e2e")
+    e2e_argv = ["--config", config("wsj_fdlp_e2e.json"), "--data", corpus, "--expdir", e2e_exp,
+                "--device", str(dev)]
+    e2e_argv += [a for c in RECIPE_E2E_CUTS for a in ("--set", c)]
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    base, carry = torch.cuda.memory_allocated(), []
+    lpc_cepstra.launches = 0
+    t0 = time.perf_counter()
+    with _K1Recorder() as rec:
+        results, out = _run_recipe(e2e_argv + ["--stage", "1", "--stop_stage", "5",
+                                               "--profile_stages"], carry)
+    torch.cuda.synchronize()
+    t_e2e = time.perf_counter() - t0
+    launches["recipe_e2e"] = lpc_cepstra.launches
+    assert launches["recipe_e2e"] > 0, "the e2e recipe did not launch K1"
+    assert len(results) == 1 and results[0][0] == "test" and np.isfinite(results[0][1])
+    _log_profile("recipe-e2e", e2e_exp, base, carry)
+    with open(os.path.join(e2e_exp, "RESULTS")) as f:
+        wer_line = f.read().strip()
+    log(f"[recipe-e2e] wsj_fdlp_e2e stages 1-5 with --set {' '.join(RECIPE_E2E_CUTS)}: "
+        f"{t_e2e:.1f} s; K1 on stage 1: {rec.summary()}; {wer_line}")
+    k1_e2e = _k1_on_path("recipe_e2e stage 1", rec.lags, rec.order, rec.lim,
+                         RECIPE_K1_TOL, RECIPE_K1_REL)
+    del rec
+    with open(os.path.join(e2e_exp, "hyp_test.txt")) as f:
+        hyps = f.read()
+    assert len(hyps.splitlines()) == sizes["test"][0], hyps
+    kept = {}
+    for root, _, files in os.walk(e2e_exp):
+        for f in files:
+            if f not in ("hyp_test.txt", "RESULTS", "stage_profile.json"):
+                kept[os.path.join(root, f)] = os.stat(os.path.join(root, f)).st_mtime_ns
+    t0 = time.perf_counter()
+    _captured(run_corpus.main, e2e_argv + ["--stage", "5", "--stop_stage", "5"])
+    t_resume = time.perf_counter() - t0
+    with open(os.path.join(e2e_exp, "hyp_test.txt")) as f:
+        assert f.read() == hyps, "--stage 5 again gave other hypotheses"
+    rewritten = [p for p, m in kept.items() if os.stat(p).st_mtime_ns != m]
+    assert not rewritten, rewritten
+    log(f"[recipe-e2e] --stage 5 again on the same expdir ({t_resume:.1f} s): hypotheses "
+        f"identical, none of {len(kept)} files of stages 1-4 rewritten; sample "
+        f"{hyps.splitlines()[0][:70]!r}")
+
+    # ---- (b) the hybrid branch at timit_hybrid, stages 1-6 ----
+    hyb_exp, hyb_cpu = j("rc_hyb"), j("rc_hyb_cpu")
+    hyb_argv = ["--config", config("timit_hybrid.json"), "--data", corpus]
+    cuts = [a for c in RECIPE_HYB_CUTS for a in ("--set", c)]
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    base, carry = torch.cuda.memory_allocated(), []
+    lpc_cepstra.launches = 0
+    t0 = time.perf_counter()
+    with _K1Recorder() as rec:
+        results, out = _run_recipe(hyb_argv + ["--expdir", hyb_exp, "--stage", "1",
+                                               "--stop_stage", "6", "--profile_stages",
+                                               "--device", str(dev)] + cuts, carry)
+    torch.cuda.synchronize()
+    t_hyb = time.perf_counter() - t0
+    launches["recipe_hybrid"] = lpc_cepstra.launches
+    assert launches["recipe_hybrid"] > 0, "the hybrid recipe did not launch K1"
+    assert len(results) == 1 and np.isfinite(results[0][1])
+    _log_profile("recipe-hybrid", hyb_exp, base, carry)
+    with open(os.path.join(hyb_exp, "RESULTS")) as f:
+        wer_line = f.read().strip()
+    with open(os.path.join(hyb_exp, "pm.score"), "rb") as f:
+        pm = pickle.load(f)
+    assert len(pm) == sizes["test"][0] and all(np.isfinite(v).all() for v in pm.values()), pm
+    log(f"[recipe-hybrid] timit_hybrid stages 1-6 with --set {' '.join(RECIPE_HYB_CUTS)}: "
+        f"{t_hyb:.1f} s; K1 on stage 1: {rec.summary()}; {wer_line}; {len(pm)} PM scores")
+    k1_hyb = _k1_on_path("recipe_hybrid stage 1", rec.lags, rec.order, rec.lim,
+                         RECIPE_K1_TOL, RECIPE_K1_REL)
+    del rec
+    shutil.copytree(hyb_exp, hyb_cpu)
+    t0 = time.perf_counter()
+    _captured(run_corpus.main, hyb_argv + ["--expdir", hyb_cpu, "--stage", "5",
+                                           "--stop_stage", "5", "--device", "cpu"] + cuts)
+    t_cpu = time.perf_counter() - t0
+    ll_g = dict(read_ark(os.path.join(hyb_exp, "loglikes_test.ark")))
+    ll_c = dict(read_ark(os.path.join(hyb_cpu, "loglikes_test.ark")))
+    keys = list(ll_c)
+    assert list(ll_g) == keys and all(np.isfinite(v).all() for v in ll_g.values())
+    ll_rel = max(float(np.abs(ll_g[k] - ll_c[k]).max() / np.abs(ll_c[k]).max()) for k in keys)
+    assert ll_rel <= RECIPE_LL_REL, ll_rel
+    _, differ = _wfst_hyps_agree("recipe-hybrid", os.path.join(hyb_exp, "graph"),
+                                 os.path.join(hyb_exp, "hyp_test.txt"),
+                                 os.path.join(hyb_cpu, "hyp_test.txt"), ll_g, ll_c, keys)
+    log(f"[recipe-hybrid] stage 5 card vs --device cpu ({t_cpu:.1f} s): log-likelihoods "
+        f"{ll_rel:.2e} of their scale (limit {RECIPE_LL_REL}); WFST hypotheses identical "
+        f"{len(keys) - len(differ)} of {len(keys)}")
+
+    # ---- (c) the demo recipe at its defaults ----
+    lpc_cepstra.launches = 0
+    t0 = time.perf_counter()
+    _, out = _captured(demo.main, ["--expdir", j("demo"), "--device", str(dev)])
+    t_demo = time.perf_counter() - t0
+    launches["demo"] = lpc_cepstra.launches
+    assert launches["demo"] > 0, "the demo did not launch K1"
+    fer = [ln for ln in out.splitlines() if "FER" in ln]
+    assert len(fer) == 2 and all(np.isfinite(float(ln.split()[-1].rstrip("%"))) for ln in fer)
+    wer = [ln.strip() for ln in out.splitlines() if "WER" in ln]
+    log(f"[demo] recipes/demo.py at its defaults (8 utterances, stages 0-6): {t_demo:.1f} s; "
+        f"{'; '.join(fer)}; {'; '.join(wer)}; K1 launches {launches['demo']}")
+
+    # ---- (d) the reverb demo ----
+    rv = j("reverb_demo")
+    lpc_cepstra.launches = 0
+    t0 = time.perf_counter()
+    _captured(reverb_demo.main, ["--expdir", rv, "--device", str(dev)] + REVERB_DEMO_ARGS)
+    t_rv = time.perf_counter() - t0
+    launches["reverb_demo"] = lpc_cepstra.launches
+    assert launches["reverb_demo"] > 0, "the reverb demo's stage 4 did not launch K1"
+    with open(os.path.join(rv, "se_scores.json")) as f:
+        scores = json.load(f)
+    for label in ("noisy", "enhanced"):
+        for k, v in scores[label].items():
+            assert (v is None and k == "pesq") or np.isfinite(v), (label, k, v)
+    with open(os.path.join(rv, "hyp.text")) as f:
+        hyp_rv = f.read().strip()
+    assert hyp_rv, "the reverb demo wrote no hypothesis"
+    log(f"[reverb-demo] recipes/reverb_demo.py {' '.join(REVERB_DEMO_ARGS)}: {t_rv:.1f} s; "
+        f"K1 launches at stage 4 {launches['reverb_demo']}; " + "; ".join(
+            f"{label} " + ", ".join(f"{k} {v:.4f}" if v is not None else f"{k} none"
+                                    for k, v in scores[label].items())
+            for label in ("noisy", "enhanced")) + f"; hyp.text {hyp_rv[:80]!r}")
+
+    # ---- (e) prefetch_to_device on the card, babysit ----
+    rng = np.random.RandomState(seed)
+    host = [{"feats": rng.randn(32, 400, 80).astype(np.float32),
+             "lens": rng.randint(100, 401, 32)} for _ in range(6)]
+    w = torch.randn(80, 512, device=dev)
+    n = 0
+    t0 = time.perf_counter()
+    for g, h in zip(prefetch_to_device(iter(host), size=2, device=dev), host, strict=True):
+        assert g["feats"].device.type == g["lens"].device.type == dev.type
+        (g["feats"] @ w).relu_().sum().item()  # consume on the current stream
+        assert torch.equal(g["feats"].cpu(), torch.from_numpy(h["feats"]))
+        assert torch.equal(g["lens"].cpu(), torch.from_numpy(h["lens"]))
+        n += 1
+    t_pf = time.perf_counter() - t0
+
+    def broken():
+        yield host[0]
+        raise ValueError("producer failed")
+
+    it = prefetch_to_device(broken(), device=dev)
+    assert next(it)["feats"].device.type == dev.type
+    try:
+        next(it)
+        raise AssertionError("the producer's error did not arrive")
+    except ValueError as e:
+        assert "producer failed" in str(e)
+    script, count = j("crash_once.py"), j("crash_once.count")
+    with open(script, "w") as f:
+        f.write("import os, sys\n"
+                f"p = {count!r}\n"
+                "n = int(open(p).read()) + 1 if os.path.exists(p) else 1\n"
+                "open(p, 'w').write(str(n))\n"
+                "sys.exit(3 if n == 1 else 0)\n")
+    rc = babysit.babysit([sys.executable, script], max_restarts=3, min_uptime=0.0, backoff=0.0)
+    with open(count) as f:
+        runs = int(f.read())
+    assert rc == 0 and runs == 2, (rc, runs)
+    log(f"[host] prefetch_to_device: {n} batches of (32, 400, 80) float32 in order and equal "
+        f"to the host's ({t_pf * 1e3 / n:.1f} ms a batch with a GEMM each); the producer's "
+        f"ValueError reached the consumer; babysit: a command that crashed once (rc 3) "
+        f"then succeeded, rc {rc} after {runs} runs")
+    log(f"[recipe] K1 on the recipe paths: max|kernel - plain| {max(k1_e2e, k1_hyb):.3e}; "
+        f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _phase_aligned_rel(got, want):
     """|got e^{-j phi} - want| / max|want|, phi = angle(vdot(want, got)):
     the GEV weights' global phase is arbitrary (ROADMAP Queue 3)."""
@@ -5003,8 +5386,12 @@ def main():
         t16 = time.perf_counter()
         enh_launches = enhance_phase(rng, dev, tmp, args.seed)
         log(f"[phase16] {time.perf_counter() - t16:.2f} s")
+        # ---- 17. the recipe drivers, the babysitter, device prefetch ----
+        t17 = time.perf_counter()
+        recipe_launches = recipe_phase(dev, tmp, args.seed)
+        log(f"[phase17] {time.perf_counter() - t17:.2f} s")
 
-    # ---- 17. every kernel of the port ----
+    # ---- 18. every kernel of the port ----
     log(json.dumps({"kernels": [{
         "name": "lpc_cepstra",
         "route": "cuda",
@@ -5024,7 +5411,8 @@ def main():
                              "int8_transcribe": int8_launches[1],
                              "int8_conformer_stream": int8_launches[2],
                              "wordlm_decode": wordlm_launches, "align": align_launches,
-                             "enhanced_augmented_featgen": enh_launches},
+                             "enhanced_augmented_featgen": enh_launches,
+                             **recipe_launches},
         "max_abs_err": main_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -5039,7 +5427,7 @@ def main():
     # names the card and its power limit beside the numbers above
     log(smi)
 
-    # ---- 18. contract line ----
+    # ---- 19. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

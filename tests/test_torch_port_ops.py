@@ -95,7 +95,8 @@ def test_import_checks_cover_the_serving_modules():
     and the adaptation, lifelong-decoding and continual-learning decode's,
     and int8 serving's, the look-ahead word LM's and the forced aligner's,
     and the enhancement chain's, its metrics', the augmentation's and the
-    corpus simulation's are among what they walk."""
+    corpus simulation's, and the recipe drivers', the babysitter's and the
+    device prefetch's are among what they walk."""
     mods = set(_port_modules())
     for m in ("dsp.streaming", "infer.streaming_asr", "eval.wer", "cli.recog_e2e",
               "cli.serve", "cli.serve_client", "cli.transcribe",
@@ -116,7 +117,9 @@ def test_import_checks_cover_the_serving_modules():
               "cli.ali_utils", "enhance", "enhance.stft", "enhance.masks",
               "enhance.beamforming", "enhance.delay_sum", "enhance.wpe", "enhance.onchip",
               "enhance.mask_model", "enhance.pipeline", "eval", "eval.enhancement_metrics",
-              "eval.srmr", "eval.info_theory", "dsp.augment", "dsp.simulate", "io.wav"):
+              "eval.srmr", "eval.info_theory", "dsp.augment", "dsp.simulate", "io.wav",
+              "recipes.run_corpus", "recipes.demo", "recipes.reverb_demo",
+              "recipes.make_synth_corpus", "cli.babysit", "io.prefetch"):
         assert f"speech_recognition_tools_tpu_torch.{m}" in mods, m
 
 
