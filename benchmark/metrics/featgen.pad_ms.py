@@ -1,0 +1,23 @@
+"""Host milliseconds `cli/common.py::run_batched` spends padding a batch
+into its length bucket: the mean `featgen.pad` span a batch, over the
+profiled passes' `featgen.pass` spans.
+
+Read from the port's own spans (`utils/profiling.py::span`), which record
+only while the profiler runs: the window's first `run.traced_units` units,
+the same units and clock as the idle share. Profiled units run slower than
+plain ones (~2x, PERF.md §3): compare this metric PR to PR, not with the
+benchmark's own span metrics, which read the units after the profiled ones.
+None where the port recorded no span.
+"""
+
+
+def read(run):
+    from speech_recognition_tools_tpu_torch.utils import profiling
+
+    last_units = getattr(profiling, "last_units", None)  # None before the port had spans
+    if last_units is None:
+        return None
+    units = last_units("featgen.pass", run.traced_units)
+    pads = [r.end_ns - r.start_ns for _, below in units for r in below
+            if r.name == "featgen.pad"]
+    return sum(pads) / 1e6 / len(pads) if pads else None

@@ -701,6 +701,28 @@ def wall_s(fn, repeats=3, warmup=True):
     return statistics.median(times), out
 
 
+def span_seconds(fn):
+    """fn() under a profiler (device activities on a card, host ones
+    without), so that the port's spans (utils/profiling.py::span) record.
+    Returns (fn's result, {span name: (host seconds summed, spans)}) of the
+    spans fn recorded; a span does not synchronise, so a part's seconds are
+    its launches, and a `.wait` / `.readback` span's the host's wait."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech_recognition_tools_tpu_torch.utils.profiling import span_records
+
+    before = max((r.id for r in span_records()), default=0)
+    with profile(activities=[ProfilerActivity.CUDA] if torch.cuda.is_available()
+                 else [ProfilerActivity.CPU]):
+        out = fn()
+    parts = {}
+    for r in span_records():
+        if r.id > before:
+            secs, count = parts.get(r.name, (0.0, 0))
+            parts[r.name] = (secs + (r.end_ns - r.start_ns) / 1e9, count + 1)
+    return out, parts
+
+
 def device_breakdown(tag, fn, top=8):
     """One profiled call of fn(): device busy share of the wall time and the
     kernels that took the most device time (torch.profiler / CUPTI).
@@ -979,10 +1001,10 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
         with torch.no_grad():
             return model.encode(f, n)
 
-    def search(mem, enc_len, ctc, model=asr, fused=lm, timings=None, max_len=E2E_MAX_LEN):
+    def search(mem, enc_len, ctc, model=asr, fused=lm, max_len=E2E_MAX_LEN):
         with torch.no_grad():
-            return beam_search_encoded(model, mem, enc_len, ctc, lm=fused, timings=timings,
-                                       max_len=max_len, **E2E_BEAM)
+            return beam_search_encoded(model, mem, enc_len, ctc, lm=fused, max_len=max_len,
+                                       **E2E_BEAM)
 
     # the main path, counted, through the entry point a user calls
     lpc_cepstra.launches = 0
@@ -1038,10 +1060,10 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
                for b in range(2))
     assert beam_rel <= 1e-4, (best_g, best_c)
 
-    # per-step parts (the device synchronised between parts) over
-    # E2E_PARTS_MAX_LEN steps, and profiles
-    parts = {}
-    toks_p, _ = search(mem, enc_len, ctc, timings=parts, max_len=E2E_PARTS_MAX_LEN)
+    # per-step parts (the search's spans, profiled) over E2E_PARTS_MAX_LEN
+    # steps, and profiles
+    (toks_p, _), parts = span_seconds(
+        lambda: search(mem, enc_len, ctc, max_len=E2E_PARTS_MAX_LEN))
     steps_p = int((toks_p[0, 0] >= 0).sum()) - 1
     device_breakdown("e2e encoder batch", lambda: encode(feats, nfr))
     device_breakdown("e2e beam search, 10 steps", lambda: search(mem, enc_len, ctc, max_len=10))
@@ -1055,8 +1077,9 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
         f"{audio_s / total:.1f}x real time")
     log(f"[e2e] beam steps run {steps} of max_len {E2E_MAX_LEN}: "
         f"{t_beam / steps * 1e3:.2f} ms/step")
-    log(f"[e2e] per step over {steps_p} steps, synchronised between parts: " + ", ".join(
-        f"{k} {v / steps_p * 1e3:.2f} ms" for k, v in parts.items()))
+    log(f"[e2e] per step over {steps_p} steps, host time of each part (profiled): "
+        + ", ".join(f"{k} {v / steps_p * 1e3:.2f} ms" for k, (v, _) in parts.items()
+                    if k.startswith("search.")))
     log(f"[e2e] max|CTC logp(K1) - CTC logp(plain)| {ctc_err:.3e} (limit {E2E_CTC_TOL}); "
         f"encoder cuda vs cpu max|err| {enc_err:.3e} (atol 1e-4); beam cuda vs cpu at max_len "
         f"{E2E_CPU_MAX_LEN} best score rel err {beam_rel:.3e} (limit 1e-4), token-identical "
@@ -4366,15 +4389,14 @@ def wordlm_phase(x, lens, fdlp_cfg, rng, dev, tmp):
 
     with torch.no_grad():
         mem, el, ctc = model.encode(f[:1], n[:1])
-    timings = {}
-    beam_search_encoded(model, mem, el, ctc, max_len=WORDLM_MAX_LEN, prefix_scorer=scorer,
-                        timings=timings, **E2E_BEAM)
+    _, timings = span_seconds(lambda: beam_search_encoded(
+        model, mem, el, ctc, max_len=WORDLM_MAX_LEN, prefix_scorer=scorer, **E2E_BEAM))
     steps = max(calls[0], 1)
     st = dict(wlm.stats)
     device_breakdown("word-LM search, 5 steps", lambda: beam_search_encoded(
         model, mem, el, ctc, max_len=5, prefix_scorer=wlm, **E2E_BEAM), top=4)
     lookups = st["hits"] + st["misses"]
-    per = {k: 1e3 * v / steps for k, v in timings.items()}
+    per = {k: 1e3 * v / steps for k, (v, _) in timings.items() if k.startswith("search.")}
     log(f"[wordlm] train_lm.main --unit word --word_vocab_size {WORDLM_VOCAB}: "
         f"{len(texts)} transcripts, {len(batches)} batches of 64 (bptt 128), 1 x 1000 GRU, "
         f"embed 256: one epoch {t_main:.2f} s (checkpoints included), nll {nll[0]:.4f}; a step "
@@ -4460,10 +4482,10 @@ def align_phase(xh, lh, rng, dev, tmp):
     with open(j("ali_text"), "w") as fh:
         fh.writelines(f"{u} {t}\n" for u, t in texts.items())
 
-    history, tm = [], {}
-    t_align, (labels, num_pdfs) = _synced(lambda: force_align.main(
+    history = []
+    t_align, ((labels, num_pdfs), tm) = _synced(lambda: span_seconds(lambda: force_align.main(
         [j("ali_feats.scp"), j("ali_text"), j("ali_lexicon.txt"), j("ali.pkl"), *ALIGN_FLAGS,
-         "--device", str(dev)], history=history, timings=tm))
+         "--device", str(dev)], history=history)))
     with open(j("ali.pkl"), "rb") as fh:
         ali = pickle.load(fh)
     assert sorted(ali) == sorted(utts) and len(history) >= 1
@@ -4517,7 +4539,8 @@ def align_phase(xh, lh, rng, dev, tmp):
     assert all(np.array_equal(phones[u], pdf_phone[ali[u]]) for u in ali)
     assert len(combined) == 2 * len(ali)
 
-    steps = max(tm.get("am_steps", 0), 1)
+    am_s, steps = tm.get("align.am_step", (0.0, 0))
+    steps = max(steps, 1)
     frames = sum(len(v) for v in ali.values())
     log(f"[align] timit_hybrid front-end, {len(utts)} utterances ({frames} frames), FDLP on "
         f"K1: {launches} launches, K1 vs plain on the path's lags max|err| {k1_err:.3e}; "
@@ -4525,9 +4548,11 @@ def align_phase(xh, lh, rng, dev, tmp):
         f"({' '.join(ALIGN_FLAGS)})")
     log(f"[align] force_align.main (hidden 96, 1 layer, {ALIGN_EPOCHS} epochs, 2 iterations, "
         f"batch 8): "
-        f"{t_align:.2f} s; {1e3 * tm.get('am_step', 0) / steps:.2f} ms an AM step over {steps} "
-        f"steps; device DP {1e3 * tm.get('dp', 0) / n_batches:.2f} ms and host traceback "
-        f"{1e3 * tm.get('traceback', 0) / n_batches:.2f} ms a batch of 8; frames changed per "
+        f"{t_align:.2f} s (profiled); host time {1e3 * am_s / steps:.2f} ms an AM step over "
+        f"{steps} steps; DP launches {1e3 * tm.get('align.dp', (0.0,))[0] / n_batches:.2f} ms, "
+        f"readback {1e3 * tm.get('align.readback', (0.0,))[0] / n_batches:.2f} ms and host "
+        f"traceback {1e3 * tm.get('align.traceback', (0.0,))[0] / n_batches:.2f} ms a batch "
+        f"of 8; frames changed per "
         f"iteration {[h['frames_changed_pct'] for h in history]}%, AM loss "
         f"{[round(h['am_loss'], 4) for h in history]}")
     log(f"[align] one batch's pseudo log-likelihoods, card vs CPU: labels identical, scores "

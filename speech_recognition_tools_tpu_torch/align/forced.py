@@ -32,10 +32,10 @@ DP saturates changes no frame out of none, reads as 0% changed and stops
 the loop as converged (ROADMAP Queue 3).
 """
 
-import time
-
 import numpy as np
 import torch
+
+from speech_recognition_tools_tpu_torch.utils.profiling import span
 
 
 class HmmTopology:
@@ -246,8 +246,7 @@ def viterbi_dp(e, lengths, start_lo, skip_to, self_lp, adv_lp):
     return alpha, bps
 
 
-def viterbi_align_batch(loglikes, lengths, chains, self_loop_prob=0.5, *, device=None,
-                        timings=None):
+def viterbi_align_batch(loglikes, lengths, chains, self_loop_prob=0.5, *, device=None):
     """Exact forced alignment of a padded batch.
 
     loglikes: (B, Tmax, P) log-likelihoods (or scaled posteriors), a tensor
@@ -258,70 +257,68 @@ def viterbi_align_batch(loglikes, lengths, chains, self_loop_prob=0.5, *, device
       `utterance_states` outputs plus `trailing_optional`; final_lo is the
       earliest permitted final state +1 (ending inside a trailing optional
       silence is also allowed).
-    timings: optional dict; "dp" and "traceback" gain their seconds (the
-      device synchronised between them).
+    Spans: `align.dp` (the DP's launches), `align.readback` (the wait for
+    the device and the copy back) and `align.traceback` (on the host).
     Returns [(labels (T_b,), score)] per utterance; one with no valid path
     gives (None, -inf).
     """
     from speech_recognition_tools_tpu_torch.device import resolve_device
 
-    t0 = time.perf_counter()
     if isinstance(loglikes, torch.Tensor):
         dev = loglikes.device if device is None else resolve_device(device)
     else:
         dev = resolve_device("cuda" if device is None else device)
-    ll = torch.as_tensor(loglikes).to(device=dev, dtype=torch.float32)
-    B, Tmax, _ = ll.shape
-    Smax = max(len(c[0]) for c in chains)
-    pdfs = np.zeros((B, Smax), np.int64)
-    smask = np.zeros((B, Smax), bool)
-    skip_to = np.full((B, Smax), -1, np.int64)
-    start_lo = np.zeros((B,), np.int64)
-    for b, (p, sk, st, _fin) in enumerate(chains):
-        pdfs[b, : len(p)] = p
-        smask[b, : len(p)] = True
-        skip_to[b, : len(sk)] = sk
-        start_lo[b] = st
-    lengths = np.asarray(lengths)
-    pd = torch.as_tensor(pdfs, device=dev)
-    e = ll.gather(2, pd[:, None, :].expand(B, Tmax, Smax))
-    e = e.masked_fill(~torch.as_tensor(smask, device=dev)[:, None, :], NEG)
-    alpha, bps = viterbi_dp(
-        e, torch.as_tensor(lengths, dtype=torch.long, device=dev),
-        torch.as_tensor(start_lo, device=dev), torch.as_tensor(skip_to, device=dev),
-        torch.tensor(np.float32(np.log(self_loop_prob)), device=dev),
-        torch.tensor(np.float32(np.log1p(-self_loop_prob)), device=dev))
-    # only the backpointer bitplane and the final DP row cross to the host
-    alphaT = alpha.cpu().numpy()
-    bps = bps.cpu().numpy()
-    t1 = time.perf_counter()
+    with span("align.dp"):
+        ll = torch.as_tensor(loglikes).to(device=dev, dtype=torch.float32)
+        B, Tmax, _ = ll.shape
+        Smax = max(len(c[0]) for c in chains)
+        pdfs = np.zeros((B, Smax), np.int64)
+        smask = np.zeros((B, Smax), bool)
+        skip_to = np.full((B, Smax), -1, np.int64)
+        start_lo = np.zeros((B,), np.int64)
+        for b, (p, sk, st, _fin) in enumerate(chains):
+            pdfs[b, : len(p)] = p
+            smask[b, : len(p)] = True
+            skip_to[b, : len(sk)] = sk
+            start_lo[b] = st
+        lengths = np.asarray(lengths)
+        pd = torch.as_tensor(pdfs, device=dev)
+        e = ll.gather(2, pd[:, None, :].expand(B, Tmax, Smax))
+        e = e.masked_fill(~torch.as_tensor(smask, device=dev)[:, None, :], NEG)
+        alpha, bps = viterbi_dp(
+            e, torch.as_tensor(lengths, dtype=torch.long, device=dev),
+            torch.as_tensor(start_lo, device=dev), torch.as_tensor(skip_to, device=dev),
+            torch.tensor(np.float32(np.log(self_loop_prob)), device=dev),
+            torch.tensor(np.float32(np.log1p(-self_loop_prob)), device=dev))
+    with span("align.readback"):
+        # only the backpointer bitplane and the final DP row cross to the host
+        alphaT = alpha.cpu().numpy()
+        bps = bps.cpu().numpy()
     out = []
-    for b, (p, sk, st_lo, fin_lo) in enumerate(chains):
-        T = int(lengths[b])
-        S = len(p)
-        # final: last real state, or anywhere in a trailing optional block
-        fin_states = np.arange(max(fin_lo - 1, 0), S)
-        s = int(fin_states[int(np.argmax(alphaT[b, fin_states]))])
-        score = float(alphaT[b, s])
-        # infeasible (fewer frames than the shortest chain path, or a DP
-        # saturated at the emission floor): no valid traceback exists
-        if T < min_align_frames(p, sk, st_lo, fin_lo) or score <= -1e29:
-            out.append((None, -np.inf))
-            continue
-        labels = np.zeros(T, np.int32)
-        for t in range(T - 1, -1, -1):
-            labels[t] = p[s]
-            mv = bps[t, b, s]
-            if t > 0:
-                if mv == 1:
-                    s -= 1
-                elif mv == 2:
-                    s = int(np.where(sk[:S] == s)[0][0])
-        assert s in (0, int(st_lo)), (s, st_lo)
-        out.append((labels, score))
-    if timings is not None:
-        timings["dp"] = timings.get("dp", 0.0) + t1 - t0
-        timings["traceback"] = timings.get("traceback", 0.0) + time.perf_counter() - t1
+    with span("align.traceback"):
+        for b, (p, sk, st_lo, fin_lo) in enumerate(chains):
+            T = int(lengths[b])
+            S = len(p)
+            # final: last real state, or anywhere in a trailing optional block
+            fin_states = np.arange(max(fin_lo - 1, 0), S)
+            s = int(fin_states[int(np.argmax(alphaT[b, fin_states]))])
+            score = float(alphaT[b, s])
+            # infeasible (fewer frames than the shortest chain path, or a DP
+            # saturated at the emission floor): no valid traceback exists
+            if T < min_align_frames(p, sk, st_lo, fin_lo) or score <= -1e29:
+                out.append((None, -np.inf))
+                continue
+            labels = np.zeros(T, np.int32)
+            for t in range(T - 1, -1, -1):
+                labels[t] = p[s]
+                mv = bps[t, b, s]
+                if t > 0:
+                    if mv == 1:
+                        s -= 1
+                    elif mv == 2:
+                        s = int(np.where(sk[:S] == s)[0][0])
+            assert s in (0, int(st_lo)), (s, st_lo)
+            out.append((labels, score))
     return out
 
 
@@ -331,7 +328,7 @@ def realign_corpus(feats, texts, lexicon, *, states_per_phone=1,
                    num_iters=2, am_epochs=5, hidden_dim=96, num_layers=1,
                    batch_size=8, seed=0, converge_tol=0.002,
                    history=None, iter_callback=None, log=print,
-                   init_weights=None, timings=None, device="cuda"):
+                   init_weights=None, device="cuda"):
     """Flat start + iterative Viterbi realignment -> frame labels.
 
     feats: {utt: (T, D)}; texts: {utt: 'word word ...'}. Each iteration
@@ -351,9 +348,8 @@ def realign_corpus(feats, texts, lexicon, *, states_per_phone=1,
 
     init_weights: optional it -> RNNClassifier state_dict, the iteration's
     initial weights (default: flax's distributions drawn from
-    torch.Generator().manual_seed(seed + it)). timings: optional dict;
-    "am_step" (synchronised, per-step seconds summed), "dp" and "traceback"
-    gain their seconds. Runs on `device` ("cuda" unless "cpu" is given).
+    torch.Generator().manual_seed(seed + it)). Each AM step is the span
+    `align.am_step`. Runs on `device` ("cuda" unless "cpu" is given).
     """
     from speech_recognition_tools_tpu_torch.device import resolve_device
     from speech_recognition_tools_tpu_torch.models.recurrent import RNNClassifier
@@ -409,10 +405,6 @@ def realign_corpus(feats, texts, lexicon, *, states_per_phone=1,
     model = RNNClassifier(D, num_layers, hidden_dim, num_pdfs, device=dev)
     params = dict(model.named_parameters())
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
     for it in range(num_iters):
         if init_weights is not None:
             model.load_state_dict(init_weights(it))
@@ -428,18 +420,14 @@ def realign_corpus(feats, texts, lexicon, *, states_per_phone=1,
             rs.shuffle(border)
             for bi in border:
                 f, ln, y = dense_batch(buckets[bi], with_labels=True)
-                t0 = time.perf_counter()
-                for p in params.values():
-                    p.grad = None
-                loss = masked_cross_entropy(model(f, ln), y, ln)
-                loss.backward()
-                opt_state, _ = opt.apply(params, {k: p.grad for k, p in params.items()},
-                                         opt_state)
+                with span("align.am_step"):
+                    for p in params.values():
+                        p.grad = None
+                    loss = masked_cross_entropy(model(f, ln), y, ln)
+                    loss.backward()
+                    opt_state, _ = opt.apply(params, {k: p.grad for k, p in params.items()},
+                                             opt_state)
                 last = loss.detach()
-                if timings is not None:
-                    sync()
-                    timings["am_step"] = timings.get("am_step", 0.0) + time.perf_counter() - t0
-                    timings["am_steps"] = timings.get("am_steps", 0) + 1
         last = float(last)
         log(f"align iter {it}: AM loss {last:.4f}")
 
@@ -454,7 +442,7 @@ def realign_corpus(feats, texts, lexicon, *, states_per_phone=1,
             with torch.no_grad():
                 pseudo_ll = torch.log_softmax(model(f, ln)[: len(idx)], dim=-1) - prior_t
             aligned = viterbi_align_batch(pseudo_ll, lens[idx], [chains[utts[i]] for i in idx],
-                                          self_loop_prob=self_loop_prob, timings=timings)
+                                          self_loop_prob=self_loop_prob)
             # a saturated DP (None labels) keeps the previous labels
             for i, a in zip(idx, aligned):
                 if a[0] is None:

@@ -144,7 +144,13 @@ def run_batched(signals, batch_fn, batch_size=32, bucket_multiple=16000, meter=N
     utterance (the copies' outputs are discarded), each rank runs batch_fn
     on its contiguous block of rows, and the blocks are all-gathered; in a
     world of one it changes nothing.
+
+    Spans: `featgen.pass` (counting the utterances) around the whole call,
+    and per batch `featgen.pad`, `featgen.batch_fn`, `featgen.readback`
+    (the wait for the device and the copy back) and `featgen.split`.
     """
+    from speech_recognition_tools_tpu_torch.utils.profiling import span
+
     mesh = None
     if data_parallel:
         from speech_recognition_tools_tpu_torch.parallel.launcher import initialize_runtime
@@ -153,45 +159,50 @@ def run_batched(signals, batch_fn, batch_size=32, bucket_multiple=16000, meter=N
         _, world, _ = initialize_runtime(device)
         if world > 1:
             mesh = make_mesh()
-    order = np.argsort([len(s) for _, s in signals], kind="stable")
-    signals = [signals[i] for i in order]
-    feats = {}
-    for i in range(0, len(signals), batch_size):
-        group = signals[i : i + batch_size]
-        rows = len(group)
-        if mesh is not None:
-            dpar = mesh.size("data")
-            rows = ((rows + dpar - 1) // dpar) * dpar
-        nmax = max(len(s) for _, s in group)
-        nmax = ((nmax + bucket_multiple - 1) // bucket_multiple) * bucket_multiple
-        batch = np.zeros((rows, nmax), np.float32)
-        lens = np.zeros(rows, np.int32)
-        for j in range(rows):
-            # pad rows (discarded below) copy the bucket's shortest
-            # utterance: group is length-sorted
-            _, s = group[j if j < len(group) else 0]
-            batch[j, : len(s)] = s
-            lens[j] = len(s)
-        if mesh is None:
-            out, nframes = batch_fn(batch, lens)
-        else:
-            import torch
+    with span("featgen.pass", n=len(signals)):
+        order = np.argsort([len(s) for _, s in signals], kind="stable")
+        signals = [signals[i] for i in order]
+        feats = {}
+        for i in range(0, len(signals), batch_size):
+            with span("featgen.pad"):
+                group = signals[i : i + batch_size]
+                rows = len(group)
+                if mesh is not None:
+                    dpar = mesh.size("data")
+                    rows = ((rows + dpar - 1) // dpar) * dpar
+                nmax = max(len(s) for _, s in group)
+                nmax = ((nmax + bucket_multiple - 1) // bucket_multiple) * bucket_multiple
+                batch = np.zeros((rows, nmax), np.float32)
+                lens = np.zeros(rows, np.int32)
+                for j in range(rows):
+                    # pad rows (discarded below) copy the bucket's shortest
+                    # utterance: group is length-sorted
+                    _, s = group[j if j < len(group) else 0]
+                    batch[j, : len(s)] = s
+                    lens[j] = len(s)
+            with span("featgen.batch_fn"):
+                if mesh is None:
+                    out, nframes = batch_fn(batch, lens)
+                else:
+                    import torch
 
-            from speech_recognition_tools_tpu_torch.parallel import collectives
-            from speech_recognition_tools_tpu_torch.parallel.mesh import batch_sharding
+                    from speech_recognition_tools_tpu_torch.parallel import collectives
+                    from speech_recognition_tools_tpu_torch.parallel.mesh import batch_sharding
 
-            mine = batch_sharding(mesh).rows(rows)
-            out, nframes = batch_fn(batch[mine], lens[mine])
-            grp = mesh.group("data")
-            out = torch.cat(collectives.all_gather_list(out.contiguous(), grp))
-            nframes = torch.cat(collectives.all_gather_list(nframes.contiguous(), grp))
-        out = out.detach().cpu().numpy()
-        nframes = nframes.detach().cpu().numpy()
-        for j, (key, _) in enumerate(group):
-            feats[key] = out[j, : int(nframes[j])]
-        if meter is not None:
-            meter.update(items=len(group),
-                         audio_seconds=float(lens[: len(group)].sum()) / srate if srate else 0.0)
+                    mine = batch_sharding(mesh).rows(rows)
+                    out, nframes = batch_fn(batch[mine], lens[mine])
+                    grp = mesh.group("data")
+                    out = torch.cat(collectives.all_gather_list(out.contiguous(), grp))
+                    nframes = torch.cat(collectives.all_gather_list(nframes.contiguous(), grp))
+            with span("featgen.readback"):
+                out = out.detach().cpu().numpy()
+                nframes = nframes.detach().cpu().numpy()
+            with span("featgen.split"):
+                for j, (key, _) in enumerate(group):
+                    feats[key] = out[j, : int(nframes[j])]
+                if meter is not None:
+                    meter.update(items=len(group), audio_seconds=(
+                        float(lens[: len(group)].sum()) / srate if srate else 0.0))
     return feats
 
 

@@ -53,7 +53,7 @@ def get_parser():
 
 def main(argv=None, **realign_kwargs):
     """Align and write ali.pkl; returns ({utt: labels}, num_pdfs).
-    `realign_kwargs` go to realign_corpus (history, init_weights, timings)."""
+    `realign_kwargs` go to realign_corpus (history, init_weights)."""
     args = get_parser().parse_args(argv)
 
     from speech_recognition_tools_tpu_torch.align import read_lexicon, realign_corpus

@@ -427,15 +427,21 @@ def make_loss(args, encode_fn=None, generator=None):
 
 def batch_on_device(batch, dev):
     """A loader batch as tensors on `dev` (keys dropped; multi-stream
-    feats stay a list)."""
+    feats stay a list). Its span `train.to_device` counts the bytes."""
     import torch
 
+    from speech_recognition_tools_tpu_torch.utils.profiling import span
+
     out = {}
-    for k, v in batch.items():
-        if k == "keys":
-            continue
-        out[k] = ([torch.as_tensor(s, device=dev) for s in v] if isinstance(v, list)
-                  else torch.as_tensor(v, device=dev))
+    with span("train.to_device") as sp:
+        for k, v in batch.items():
+            if k == "keys":
+                continue
+            out[k] = ([torch.as_tensor(s, device=dev) for s in v] if isinstance(v, list)
+                      else torch.as_tensor(v, device=dev))
+        if sp:
+            sp.n = sum(t.nbytes for v in out.values()
+                       for t in (v if isinstance(v, list) else [v]))
     return out
 
 

@@ -39,8 +39,6 @@ beams every step) instead of the full-prefix pass; the search is
 token-identical either way.
 """
 
-import time
-
 import torch
 
 from speech_recognition_tools_tpu_torch.decode.ctc_prefix import (
@@ -49,25 +47,7 @@ from speech_recognition_tools_tpu_torch.decode.ctc_prefix import (
     init_prefix_state,
 )
 from speech_recognition_tools_tpu_torch.device import resolve_device
-
-
-class _PartTimer:
-    """Adds each part's wall seconds into `timings` (synchronising the
-    device at every boundary); does nothing when `timings` is None."""
-
-    def __init__(self, timings, device):
-        self.timings, self.device = timings, device
-        self.t = None
-
-    def __call__(self, part=None):
-        if self.timings is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        if part is not None:
-            self.timings[part] = self.timings.get(part, 0.0) + now - self.t
-        self.t = now
+from speech_recognition_tools_tpu_torch.utils.profiling import span
 
 
 def _top_k(flat: torch.Tensor, k: int):
@@ -88,7 +68,7 @@ def _top_k(flat: torch.Tensor, k: int):
 @torch.no_grad()
 def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
                         max_len=100, ctc_weight=0.3, penalty=0.0, lm=None,
-                        lm_weight=1.0, timings=None, incremental=False,
+                        lm_weight=1.0, incremental=False,
                         prefix_scorer=None):
     """The search proper, from the encoder's output (model.encode).
 
@@ -102,13 +82,14 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
     they are (no log_softmax) and gathered with the beams. Exclusive with
     `lm`.
 
-    timings: optional dict; when given, each step synchronises the device
-    between its parts and adds their seconds under "decoder", "ctc",
-    "lm", "topk" and "update" (the search is slower so measured).
-
     incremental: run the decoder KV-cached (model.decode_incremental), its
     cache initialised from the token buffer and its positional table
     max(max_len + 1, 16) rows long, as beam_search_jit(incremental=True).
+
+    Spans (utils/profiling.py): `search`, counting the steps run, holds
+    `search.init` and per step `search.decoder`, `search.lm`,
+    `search.ctc_prefix`, `search.topk`, `search.update` and `search.wait`
+    (the step's one host sync, whether every beam has finished).
 
     Returns (tokens (B, K, max_len+1) int64 with sos at 0 and -1 padding,
     scores (B, K) float32); feed each row to tokens_to_list.
@@ -119,88 +100,92 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
     B, T2, _ = memory.shape
     K, V = beam_size, cfg.vocab_size
     dev = memory.device
-    tick = _PartTimer(timings, dev)
-    ctc_logp = torch.log_softmax(ctc_logits, dim=-1)
-    # memory in the compute dtype once, not at every step's projections
-    mem = memory.to(cfg.cdtype or memory.dtype).repeat_interleave(K, dim=0)
-    mem_len = enc_len.repeat_interleave(K)
-    utt = torch.arange(B, device=dev)[:, None]  # (B, 1)
+    with span("search") as search:
+        with span("search.init"):
+            ctc_logp = torch.log_softmax(ctc_logits, dim=-1)
+            # memory in the compute dtype once, not at every step's projections
+            mem = memory.to(cfg.cdtype or memory.dtype).repeat_interleave(K, dim=0)
+            mem_len = enc_len.repeat_interleave(K)
+            utt = torch.arange(B, device=dev)[:, None]  # (B, 1)
 
-    tokens = torch.full((B * K, max_len + 1), -1, dtype=torch.long, device=dev)
-    tokens[:, 0] = cfg.sos_id
-    att_cum = torch.full((B, K), float("-inf"), device=dev)
-    att_cum[:, 0] = 0.0
-    lm_cum = torch.zeros((B, K), device=dev)
-    scores = att_cum.clone()
-    finished = torch.zeros((B, K), dtype=torch.bool, device=dev)
-    last_tokens = torch.full((B, K), -1, dtype=torch.long, device=dev)
-    prefix_lens = torch.zeros((B, K), dtype=torch.long, device=dev)
-    r_state = init_prefix_state(ctc_logp, enc_len, K, cfg.blank_id)
-    last_f = (enc_len - 1).clamp(0, T2 - 1)
-    lm_state = lm.init_state(B * K) if lm is not None else None
-    cache = model.decode_init_cache(tokens, mem, mem_len) if incremental else None
-    pe_len = max(max_len + 1, 16)
+            tokens = torch.full((B * K, max_len + 1), -1, dtype=torch.long, device=dev)
+            tokens[:, 0] = cfg.sos_id
+            att_cum = torch.full((B, K), float("-inf"), device=dev)
+            att_cum[:, 0] = 0.0
+            lm_cum = torch.zeros((B, K), device=dev)
+            scores = att_cum.clone()
+            finished = torch.zeros((B, K), dtype=torch.bool, device=dev)
+            last_tokens = torch.full((B, K), -1, dtype=torch.long, device=dev)
+            prefix_lens = torch.zeros((B, K), dtype=torch.long, device=dev)
+            r_state = init_prefix_state(ctc_logp, enc_len, K, cfg.blank_id)
+            last_f = (enc_len - 1).clamp(0, T2 - 1)
+            lm_state = lm.init_state(B * K) if lm is not None else None
+            cache = model.decode_init_cache(tokens, mem, mem_len) if incremental else None
+            pe_len = max(max_len + 1, 16)
 
-    tick()
-    for step in range(max_len):
-        if incremental:
-            dec_logits = model.decode_incremental(tokens[:, step : step + 1], step, mem,
-                                                  mem_len, cache, pe_len=pe_len)[:, 0]
-        else:
-            dec_logits = model.decode_step(tokens[:, : step + 1], mem, mem_len)[:, step]
-        att_logp = torch.log_softmax(dec_logits, dim=-1).view(B, K, V)
-        new_att = att_cum[..., None] + att_logp
-        tick("decoder")
-        new_lm = lm_cum[..., None]
-        if lm is not None:
-            lm_logits, lm_next = lm.step(tokens[:, step], lm_state)
-            new_lm = new_lm + torch.log_softmax(lm_logits, dim=-1).view(B, K, V)
-            tick("lm")
-        elif prefix_scorer is not None:
-            raw = torch.as_tensor(prefix_scorer(tokens[:, : step + 1]), dtype=torch.float32)
-            new_lm = new_lm + raw.to(dev).view(B, K, V)
-            tick("lm")
+        for step in range(max_len):
+            search.n = step + 1
+            with span("search.decoder"):
+                if incremental:
+                    dec_logits = model.decode_incremental(tokens[:, step : step + 1], step, mem,
+                                                          mem_len, cache, pe_len=pe_len)[:, 0]
+                else:
+                    dec_logits = model.decode_step(tokens[:, : step + 1], mem, mem_len)[:, step]
+                att_logp = torch.log_softmax(dec_logits, dim=-1).view(B, K, V)
+                new_att = att_cum[..., None] + att_logp
+            new_lm = lm_cum[..., None]
+            if lm is not None:
+                with span("search.lm"):
+                    lm_logits, lm_next = lm.step(tokens[:, step], lm_state)
+                    new_lm = new_lm + torch.log_softmax(lm_logits, dim=-1).view(B, K, V)
+            elif prefix_scorer is not None:
+                with span("search.lm"):
+                    raw = torch.as_tensor(prefix_scorer(tokens[:, : step + 1]),
+                                          dtype=torch.float32)
+                    new_lm = new_lm + raw.to(dev).view(B, K, V)
 
-        psi, _, r_new = ctc_prefix_scores(ctc_logp, enc_len, prefix_lens, last_tokens,
-                                          r_state, cfg.blank_id)
-        r_last = r_state[utt[:, 0], :, last_f]  # (B, K, 2)
-        ctc_part = psi.clone()
-        ctc_part[..., cfg.eos_id] = torch.logaddexp(r_last[..., 0], r_last[..., 1])
-        ctc_part[..., cfg.blank_id] = NEG_INF
-        tick("ctc")
+            with span("search.ctc_prefix"):
+                psi, _, r_new = ctc_prefix_scores(ctc_logp, enc_len, prefix_lens, last_tokens,
+                                                  r_state, cfg.blank_id)
+                r_last = r_state[utt[:, 0], :, last_f]  # (B, K, 2)
+                ctc_part = psi.clone()
+                ctc_part[..., cfg.eos_id] = torch.logaddexp(r_last[..., 0], r_last[..., 1])
+                ctc_part[..., cfg.blank_id] = NEG_INF
 
-        total = ((1.0 - ctc_weight) * new_att + ctc_weight * ctc_part
-                 + lm_weight * new_lm + penalty * (step + 1))
-        done = torch.full_like(total, NEG_INF)
-        done[..., cfg.eos_id] = 0.0
-        done = done + torch.where(finished, scores, 0.0)[..., None]
-        total = torch.where(finished[..., None], done, total)
-        top_scores, top_idx = _top_k(total.view(B, K * V), K)
-        beam_idx = torch.div(top_idx, V, rounding_mode="floor")
-        tok = top_idx % V
-        tick("topk")
+            with span("search.topk"):
+                total = ((1.0 - ctc_weight) * new_att + ctc_weight * ctc_part
+                         + lm_weight * new_lm + penalty * (step + 1))
+                done = torch.full_like(total, NEG_INF)
+                done[..., cfg.eos_id] = 0.0
+                done = done + torch.where(finished, scores, 0.0)[..., None]
+                total = torch.where(finished[..., None], done, total)
+                top_scores, top_idx = _top_k(total.view(B, K * V), K)
+                beam_idx = torch.div(top_idx, V, rounding_mode="floor")
+                tok = top_idx % V
 
-        rows = (utt * K + beam_idx).view(-1)  # parent row of each new beam
-        tokens = tokens[rows]
-        if incremental:
-            cache = model.reorder_cache(cache, rows)
-        tokens[:, step + 1] = tok.view(-1)
-        ends = finished.gather(1, beam_idx) | (tok == cfg.eos_id)
-        att_cum = new_att.view(B, K * V).gather(1, top_idx)
-        if lm is not None or prefix_scorer is not None:
-            lm_cum = new_lm.view(B, K * V).gather(1, top_idx)
-        if lm is not None:
-            lm_state = lm.reorder_state(lm_next, rows)
-        scores = top_scores
-        finished = ends
-        last_tokens = torch.where(ends, last_tokens.gather(1, beam_idx), tok)
-        prefix_lens = prefix_lens.gather(1, beam_idx) + (~ends).long()
-        r_state = torch.where(ends[..., None, None], r_state[utt, beam_idx],
-                              r_new[utt, beam_idx, tok])
-        stop = bool(finished.all())
-        tick("update")
-        if stop:
-            break
+            with span("search.update"):
+                rows = (utt * K + beam_idx).view(-1)  # parent row of each new beam
+                tokens = tokens[rows]
+                if incremental:
+                    cache = model.reorder_cache(cache, rows)
+                tokens[:, step + 1] = tok.view(-1)
+                ends = finished.gather(1, beam_idx) | (tok == cfg.eos_id)
+                att_cum = new_att.view(B, K * V).gather(1, top_idx)
+                if lm is not None or prefix_scorer is not None:
+                    lm_cum = new_lm.view(B, K * V).gather(1, top_idx)
+                if lm is not None:
+                    lm_state = lm.reorder_state(lm_next, rows)
+                scores = top_scores
+                finished = ends
+                last_tokens = torch.where(ends, last_tokens.gather(1, beam_idx), tok)
+                prefix_lens = prefix_lens.gather(1, beam_idx) + (~ends).long()
+                r_state = torch.where(ends[..., None, None], r_state[utt, beam_idx],
+                                      r_new[utt, beam_idx, tok])
+                all_done = finished.all()
+            with span("search.wait"):
+                stop = bool(all_done)
+            if stop:
+                break
     return tokens.view(B, K, max_len + 1), scores
 
 

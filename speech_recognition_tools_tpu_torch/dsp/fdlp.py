@@ -67,6 +67,7 @@ from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import (
 )
 from speech_recognition_tools_tpu_torch.ops.ola import ola_positions, overlap_add
 from speech_recognition_tools_tpu_torch.ops.windows import WINDOWS
+from speech_recognition_tools_tpu_torch.utils.profiling import span
 
 HIGH_PRECISIONS = ("high", "mixed")
 
@@ -264,13 +265,17 @@ def window_envelopes(windows, cfg: FdlpConfig, k):
 
 def _frames(signals, num_samples, fp, dtype, dev):
     """Raw (unwindowed) analysis windows of a zero-padded batch:
-    (frames (B * max_frames, flen), num_frames (B,))."""
-    signals = torch.as_tensor(signals).to(device=dev, dtype=dtype)
-    num_samples = torch.as_tensor(num_samples).to(device=dev, dtype=torch.int64)
+    (frames (B * max_frames, flen), num_frames (B,), num_samples on `dev`).
+    The move of the signals and their lengths to `dev` is the span
+    `fdlp.h2d`, counting the bytes that arrive there."""
+    with span("fdlp.h2d") as h2d:
+        signals = torch.as_tensor(signals).to(device=dev, dtype=dtype)
+        num_samples = torch.as_tensor(num_samples).to(device=dev, dtype=torch.int64)
+        h2d.n = signals.nbytes + num_samples.nbytes
     max_frames = frame_count(signals.shape[1], fp)
     ones = torch.ones(fp.flength_samples, dtype=dtype, device=dev)
     frames, num_frames = frame_signal(signals, num_samples, fp, ones, max_frames)
-    return frames.reshape(-1, fp.flength_samples), num_frames
+    return frames.reshape(-1, fp.flength_samples), num_frames, num_samples
 
 
 def fdlp_lags(signals, num_samples, cfg: FdlpConfig = FdlpConfig(), *,
@@ -283,7 +288,7 @@ def fdlp_lags(signals, num_samples, cfg: FdlpConfig = FdlpConfig(), *,
     On CUDA it switches TF32 off process-wide (device.configure_cuda).
     """
     dev, c, k = _setup(cfg, dtype, device)
-    frames, num_frames = _frames(signals, num_samples, c["fp"], dtype, dev)
+    frames, num_frames, _ = _frames(signals, num_samples, c["fp"], dtype, dev)
     return _window_lags(frames, cfg, k), num_frames
 
 
@@ -325,8 +330,7 @@ def fdlp_spectrogram_batch(
       num_out_frames: (B,) int64 true output frame counts.
     """
     dev, c, k = _setup(cfg, dtype, device)
-    frames, num_frames = _frames(signals, num_samples, c["fp"], dtype, dev)
-    num_samples = torch.as_tensor(num_samples).to(device=dev, dtype=torch.int64)
+    frames, num_frames, num_samples = _frames(signals, num_samples, c["fp"], dtype, dev)
     B = num_samples.shape[0]
     max_samples = signals.shape[1]
     max_frames = frames.shape[0] // B

@@ -168,8 +168,11 @@ def iter_egs_batches(
     `bucket_multiple`.
 
     Yields dict(feats (B,T,D) f32, labels (B,T) i32 or absent,
-    lengths (B,) i32, keys list).
+    lengths (B,) i32, keys list). The host work of each batch is the span
+    `egs.batch`, counting its padded frames.
     """
+    from speech_recognition_tools_tpu_torch.utils.profiling import span
+
     if isinstance(egs_dir_or_utts, str):
         _, utts = load_egs(egs_dir_or_utts)
     else:
@@ -181,23 +184,25 @@ def iter_egs_batches(
         rs = np.random.RandomState(shuffle_seed)
         rs.shuffle(batches)
     for group in batches:
-        B = len(group)
-        tmax = _round_up(max(f.shape[0] for _, f, _ in group), bucket_multiple)
-        D = group[0][1].shape[1]
-        feats = np.zeros((B, tmax, D), np.float32)
-        lengths = np.zeros(B, np.int32)
-        has_labels = group[0][2] is not None and not drop_labels
-        labels = np.zeros((B, tmax), np.int32) if has_labels else None
-        keys = []
-        for i, (k, f, l) in enumerate(group):
-            feats[i, : f.shape[0]] = f
-            lengths[i] = f.shape[0]
+        with span("egs.batch") as sp:
+            B = len(group)
+            tmax = _round_up(max(f.shape[0] for _, f, _ in group), bucket_multiple)
+            sp.n = B * tmax
+            D = group[0][1].shape[1]
+            feats = np.zeros((B, tmax, D), np.float32)
+            lengths = np.zeros(B, np.int32)
+            has_labels = group[0][2] is not None and not drop_labels
+            labels = np.zeros((B, tmax), np.int32) if has_labels else None
+            keys = []
+            for i, (k, f, l) in enumerate(group):
+                feats[i, : f.shape[0]] = f
+                lengths[i] = f.shape[0]
+                if has_labels:
+                    labels[i, : len(l)] = l
+                keys.append(k)
+            out = dict(feats=feats, lengths=lengths, keys=keys)
             if has_labels:
-                labels[i, : len(l)] = l
-            keys.append(k)
-        out = dict(feats=feats, lengths=lengths, keys=keys)
-        if has_labels:
-            out["labels"] = labels
+                out["labels"] = labels
         yield out
 
 

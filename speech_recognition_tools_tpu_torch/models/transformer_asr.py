@@ -85,6 +85,7 @@ from torch.nn import functional as F
 from speech_recognition_tools_tpu_torch.device import configure_cuda, resolve_device
 from speech_recognition_tools_tpu_torch.models import flax_init
 from speech_recognition_tools_tpu_torch.parallel.collectives import global_mean, global_ratio
+from speech_recognition_tools_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -578,7 +579,7 @@ class TransformerASR(nn.Module):
         """(B, T, idim), (B,) -> memory (B, T2, adim), enc_len (B,),
         ctc_logits (B, T2, vocab); without dropout in either mode, as the
         JAX `encode` runs deterministically."""
-        with _eval_mode(self):
+        with span("asr.encode"), _eval_mode(self):
             memory, enc_len = self.encoder(feats, lengths)
             return memory, enc_len, _head(self.ctc_head, memory)
 

@@ -54,6 +54,8 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
+from speech_recognition_tools_tpu_torch.utils.profiling import span
+
 B1, EPS = 0.9, 1e-8  # optax.adam's defaults, which every caller takes
 
 
@@ -75,7 +77,9 @@ def global_norm(grads: list, norm_sq=None) -> torch.Tensor:
 def clip_by_global_norm(g: list, threshold: float | None, norm_sq=None):
     """(the gradients as optax.clip_by_global_norm(threshold) leaves them,
     their global norm before clipping as a float); None clips nothing."""
-    gnorm = global_norm(g, norm_sq).item()
+    norm = global_norm(g, norm_sq)
+    with span("optim.wait"):
+        gnorm = norm.item()
     if threshold is not None and not gnorm < threshold:
         g = torch._foreach_mul(torch._foreach_div(g, gnorm), threshold)
     return g, gnorm

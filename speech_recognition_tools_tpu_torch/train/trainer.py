@@ -22,6 +22,7 @@ import torch
 
 from speech_recognition_tools_tpu_torch.parallel.collectives import reduce_over
 from speech_recognition_tools_tpu_torch.train.optim import f32, make_optimizer
+from speech_recognition_tools_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -86,14 +87,21 @@ class Trainer:
         )
 
     def train_step(self, state: TrainState, batch):
-        """One update in place; returns (loss, aux, grad norm)."""
-        for p in state.params.values():
-            p.grad = None
-        with reduce_over(self.reduce_group):
-            loss, aux = self.loss_fn(self.model, batch, True)
-        loss.backward()
-        grads = {k: p.grad for k, p in state.params.items()}
-        state.opt_state, gnorm = self.opt.apply(state.params, grads, state.opt_state)
+        """One update in place; returns (loss, aux, grad norm). Its span
+        `train.step` counts the batch's valid frames (the sum of its
+        "lengths", where it has them)."""
+        with span("train.step") as step:
+            if step and isinstance(batch, dict) and "lengths" in batch:
+                step.n = torch.as_tensor(batch["lengths"]).sum()
+            for p in state.params.values():
+                p.grad = None
+            with span("train.forward"), reduce_over(self.reduce_group):
+                loss, aux = self.loss_fn(self.model, batch, True)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"):
+                grads = {k: p.grad for k, p in state.params.items()}
+                state.opt_state, gnorm = self.opt.apply(state.params, grads, state.opt_state)
         return loss.detach(), aux, gnorm
 
     def run_epoch(self, state: TrainState, train_iter):

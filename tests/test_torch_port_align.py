@@ -27,6 +27,7 @@ from speech_recognition_tools_tpu_torch.cli import ali_utils as tali_utils
 from speech_recognition_tools_tpu_torch.cli import force_align as tforce_align
 from speech_recognition_tools_tpu_torch.io.jax_params import rnn_classifier_from_jax
 from speech_recognition_tools_tpu_torch.io.kaldi_ark import write_ark_scp
+from speech_recognition_tools_tpu_torch.utils.profiling import span_records
 
 torch.set_num_threads(1)
 
@@ -101,7 +102,7 @@ def test_viterbi_align_batch_matches_jax(self_loop):
     word-position silence, different lengths) on seeded random and sharp
     log-likelihoods, one utterance with too few frames: labels identical,
     scores within 1e-6 relative, the infeasible one (None, -inf) in both;
-    the DP timings are recorded."""
+    under a profiler the DP, its readback and the traceback are spans."""
     rs = np.random.RandomState(11)
     specs = [(["go", "stop"], 2, 4, None), (["stop", "left"], 1, None, None),
              (["left", "go"], 2, 4, dict(silence_states=3, wpd_silence=True)),
@@ -116,10 +117,14 @@ def test_viterbi_align_batch_matches_jax(self_loop):
     res = {}
     for name, mod in (("jax", jforced), ("port", tforced)):
         chains = [_chain(mod, w, S, sil, extra) for w, S, sil, extra in specs]
-        kw = dict(device="cpu", timings={}) if mod is tforced else {}
-        res[name] = mod.viterbi_align_batch(ll, lengths, chains, self_loop_prob=self_loop, **kw)
         if mod is tforced:
-            assert kw["timings"]["dp"] > 0 and "traceback" in kw["timings"]
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+                res[name] = mod.viterbi_align_batch(ll, lengths, chains, device="cpu",
+                                                    self_loop_prob=self_loop)
+            names = [r.name for r in span_records()[-3:]]
+            assert names == ["align.dp", "align.readback", "align.traceback"]
+        else:
+            res[name] = mod.viterbi_align_batch(ll, lengths, chains, self_loop_prob=self_loop)
     _check_same(res["port"], res["jax"])
     assert res["port"][4] == (None, -np.inf) and res["port"][0][0].tolist() == true.tolist()
     # a tensor input runs on its device

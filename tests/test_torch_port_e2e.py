@@ -37,6 +37,7 @@ from speech_recognition_tools_tpu_torch.io.jax_params import (
 from speech_recognition_tools_tpu_torch.models import transformer_asr as ttasr
 from speech_recognition_tools_tpu_torch.models.rnnlm import RNNLM
 from speech_recognition_tools_tpu_torch.utils import cmvn as tcmvn
+from speech_recognition_tools_tpu_torch.utils.profiling import last_units
 
 torch.set_num_threads(1)
 
@@ -480,14 +481,21 @@ def test_beam_search_stops_when_every_beam_has_finished(asr):
     for b in range(2):
         assert tbeam.tokens_to_list(tt[b], ts[b], EOS) == jbeam.tokens_to_list(jt[b], js[b], EOS)
     np.testing.assert_allclose(ts.numpy(), js, rtol=0, atol=1e-4)
-    # the timed search returns the same and adds a time under each part
-    timings = {}
+    # under a profiler the search returns the same and records its parts
+    # under one `search` span, whose count is the steps run
     with torch.no_grad():
         mem, enc_len, ctc = port.encode(torch.as_tensor(x), torch.as_tensor(lens).long())
-    t2, s2 = tbeam.beam_search_encoded(port, mem, enc_len, ctc, beam_size=4, max_len=12,
-                                       timings=timings)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        t2, s2 = tbeam.beam_search_encoded(port, mem, enc_len, ctc, beam_size=4, max_len=12)
     assert torch.equal(t2, tt) and torch.equal(s2, ts)
-    assert set(timings) == {"decoder", "ctc", "topk", "update"}
+    (search, parts), = last_units("search", 1)
+    assert search.n == steps
+    assert all(p.parent == search.id for p in parts)
+    names = [p.name for p in parts]
+    for part in ("search.decoder", "search.ctc_prefix", "search.topk", "search.update",
+                 "search.wait"):
+        assert names.count(part) == steps, part
+    assert "search.lm" not in names
 
 
 # ------------------------------------------------------------------ text
