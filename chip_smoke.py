@@ -8,9 +8,9 @@ csrc/ (nvcc) and the native decoder from native/ (g++), and drives the
 port only (no JAX). Every phase asserts; any failure
 exits non-zero. Phases:
 
-  1. the card's name and power limit (nvidia-smi) and the kernel build,
+  1. the card's name and power limit (nvidia-smi) and the kernel builds,
      with each K1 instantiation's registers and spills (none allowed in
-     those the configs' launch plans pick);
+     those the configs' launch plans pick) and K2's;
   2. K1 (csrc/lpc_cepstra.cu) against its plain PyTorch version on AR
      lags (rtol = atol = 1e-4) at the three config shapes, ragged and odd
      row counts, unity gain, lim = 1, lim = 2, lim > order + 1, and orders
@@ -48,7 +48,12 @@ exits non-zero. Phases:
      hypotheses counted); per-batch times and real-time factor at max_len
      100; ms per beam step split into decoder, CTC prefix, LM, top-k and
      update (E2E_PARTS_MAX_LEN steps), and
-     profiles of the encoder and of ten beam steps;
+     profiles of the encoder and of ten beam steps; K2's launches counted
+     over the recognize_batch call and, one a step, over the timed search;
+     (b) K2 (csrc/ctc_prefix.cu) against its plain version at the shapes
+     the search feeds it (k2_phase: phase 5's batch at beam 10, its first
+     step, one utterance, the decode cell's longest batch; K2_REL), kernel
+     ms by CUDA-graph replay beside the plain ms and the bytes bound;
   6. hybrid training at timit_hybrid on phase 4's 32 utterances: FDLP (K1)
      -> global CMVN -> build_egs with seeded frame labels over 3,376
      classes -> train_am.main --arch rnn (3 x 512 GRU, Adam lr 1e-3, clip
@@ -303,7 +308,10 @@ exits non-zero. Phases:
      2 over phase 6's egs, first step against one process (same limits).
      Each path's ms and the share of it spent in exchanges are logged;
   19. one JSON line describing every kernel of the port (`launches` is the
-     hybrid main path's count, `launches_by_path` each path's);
+     main path's count: K1's on the hybrid slice, K2's on the e2e one;
+     `launches_by_path` each path's: K2's over the e2e, incremental, bf16,
+     conformer and word-LM searches and recog_e2e's --jit_decode and
+     --streaming final beam);
   20. the run's time, the card's name and power limit again, then the last
      line: {"ok": true, "device": {...}}.
 """
@@ -349,6 +357,11 @@ E2E_MAX_LEN = 100
 E2E_CPU_MAX_LEN = 50
 E2E_PARTS_MAX_LEN = 25
 E2E_CTC_TOL = 1.2e-3
+# K2 (csrc/ctc_prefix.cu) against its plain version: finite entries within
+# K2_REL relative, every NEG_INF entry exact and in place; timed at phase
+# 5's batch and at (B, T) of the wsj_fdlp_e2e.decode cell's longest batch
+K2_REL = 1e-5
+K2_CELL_BT = (8, 303)
 
 # training (phases 6-7): timit_hybrid's am section and wsj_fdlp_e2e's
 # (:17-34), at full width; two epochs of two batches each
@@ -788,6 +801,46 @@ def k1_bound_ms(P, order, lim):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+# K2's launches by search path, for phase 19's kernels line: each path sets
+# the counter to 0 (k2_reset) before it runs and reads it right after
+K2_LAUNCHES = {}
+
+
+def k2_reset():
+    from speech_recognition_tools_tpu_torch.decode.ctc_prefix import ctc_prefix_scores
+
+    ctc_prefix_scores.launches = 0
+
+
+def k2_read(path, steps=None):
+    """K2's launches since k2_reset(), kept under K2_LAUNCHES[path]: the
+    path has to have launched K2, once a search step where `steps` says
+    how many steps its searches ran."""
+    from speech_recognition_tools_tpu_torch.decode.ctc_prefix import ctc_prefix_scores
+
+    n = ctc_prefix_scores.launches
+    assert n > 0, f"the {path} path did not launch K2"
+    assert steps is None or n == steps, (path, n, steps)
+    K2_LAUNCHES[path] = n
+    return n
+
+
+def search_steps(toks):
+    """Steps a beam search ran, from its (B, K, max_len + 1) tokens: every
+    step fills its column in every row, finished rows included."""
+    return int((toks[0, 0] >= 0).sum()) - 1
+
+
+def k2_bound_ms(B, K, V, T):
+    """K2's DRAM bytes at (B, K, V, T) over the card's bandwidth: logp and
+    r_prev read once, r_new (2 T B K V floats), psi and full written once,
+    the int64 inputs read once; its ~25 flops a chain frame take far less
+    at H100_F32_FLOPS."""
+    nbytes = 4 * (B * T * V + B * K * T * 2 + 2 * T * B * K * V + 2 * B * K * V)
+    nbytes += 8 * (B + 2 * B * K)
+    return 1e3 * nbytes / H100_BYTES_PER_S, nbytes
+
+
 def cep_agreement(tag, got, ref):
     """Kernel-vs-plain agreement on (P, lim) cepstra, printed per
     coefficient n as the typical |c_n| (mean over rows) beside the largest
@@ -1008,6 +1061,7 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
 
     # the main path, counted, through the entry point a user calls
     lpc_cepstra.launches = 0
+    k2_reset()
     t0 = time.perf_counter()
     texts = recognize_batch(x, lens, fdlp_cfg, mean, std, asr, vocab, lm=lm, **E2E_BEAM,
                             max_len=E2E_MAX_LEN, device=dev)
@@ -1015,13 +1069,16 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
     t_first = time.perf_counter() - t0
     launches = lpc_cepstra.launches
     assert launches > 0, "the e2e path did not launch K1"
+    k2_e2e = k2_read("e2e")
 
     # the same chain part by part: timed, and held to the one call
     t_front, (feats, nfr) = wall_s(lambda: front(fdlp_cfg))
     t_enc, (mem, enc_len, ctc) = wall_s(lambda: encode(feats, nfr))
     # recognize_batch has just run this search: no warm-up call
+    k2_reset()
     t_beam, (toks, scores) = wall_s(lambda: search(mem, enc_len, ctc), repeats=1, warmup=False)
-    steps = int((toks[0, 0] >= 0).sum()) - 1
+    steps = search_steps(toks)
+    k2_read("e2e_search", steps)
     hyps = [tokens_to_list(toks[b], scores[b], eos) for b in range(B)]
     assert texts == [decode_tokens(h, vocab) for h in hyps], "recognize_batch != its parts"
     assert all(isinstance(t, str) for t in texts) and len(texts) == B
@@ -1071,12 +1128,13 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
     log(f"[e2e] wsj_fdlp_e2e {B} x {lens.min() / 16000:.1f}-{lens.max() / 16000:.1f} s "
         f"({audio_s:.1f} s audio), {int(enc_len.max())} encoder frames max, vocab {V}, "
         f"{cfg.elayers}/{cfg.dlayers} layers, beam {E2E_BEAM['beam_size']}, RNNLM 1 x "
-        f"{E2E_LM_HIDDEN}: K1 launches {launches}; first recognize_batch call {t_first:.2f} s")
+        f"{E2E_LM_HIDDEN}: K1 launches {launches}, K2 launches {k2_e2e}; first recognize_batch "
+        f"call {t_first:.2f} s")
     log(f"[e2e] per batch at max_len {E2E_MAX_LEN}: front-end {t_front * 1e3:.2f} ms, encoder "
         f"{t_enc * 1e3:.2f} ms, beam search {t_beam * 1e3:.1f} ms; total {total * 1e3:.1f} ms = "
         f"{audio_s / total:.1f}x real time")
     log(f"[e2e] beam steps run {steps} of max_len {E2E_MAX_LEN}: "
-        f"{t_beam / steps * 1e3:.2f} ms/step")
+        f"{t_beam / steps * 1e3:.2f} ms/step; K2 launches {steps}, one a step")
     log(f"[e2e] per step over {steps_p} steps, host time of each part (profiled): "
         + ", ".join(f"{k} {v / steps_p * 1e3:.2f} ms" for k, (v, _) in parts.items()
                     if k.startswith("search.")))
@@ -1087,6 +1145,111 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
     log(f"[e2e] sample hypotheses: {texts[0][:60]!r} / {texts[1][:60]!r}")
     return launches, dict(asr=asr, lm=lm, mem=mem[:4], enc_len=enc_len[:4], ctc=ctc[:4],
                           vocab=vocab, mem_all=mem, enc_len_all=enc_len, ctc_all=ctc)
+
+
+def k2_phase(e2e, gen, dev):
+    """Phase 5 (b): K2 (csrc/ctc_prefix.cu) through ctc_prefix_scores
+    against its plain version, ctc_prefix_scores_reference, at the shapes
+    the e2e search feeds it: phase 5's CTC log-probs over its 32 utterances
+    with K = beam 10 prefixes (empty, ordinary tokens, a repeated token,
+    blank and eos last, one impossible) whose forward variables are chained
+    through the plain version; the search's first step (the empty prefix's
+    expanded state); one utterance (B = 1, as the streaming final search
+    has it); and seeded log-probs at the decode cell's longest batch
+    K2_CELL_BT with valid lengths spread over 100-303 frames. Finite
+    entries within K2_REL relative, every NEG_INF exact and in place, one
+    launch a call. Kernel ms by CUDA-graph replay, the plain version's by
+    CUDA events, and the bytes bound, at phase 5's batch and at the cell's
+    (the kernels line's). Returns the kernels line's numbers."""
+    from speech_recognition_tools_tpu_torch.decode.ctc_prefix import (
+        NEG_INF,
+        ctc_prefix_scores,
+        ctc_prefix_scores_reference,
+        init_prefix_state,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = e2e["asr"].cfg
+    K, V, blank, eos = E2E_BEAM["beam_size"], cfg.vocab_size, cfg.blank_id, cfg.eos_id
+    prefixes = [[], [5], [5, 5], [7, 3], [blank], [3, blank], [12, 12, 12], [9, 4, 9, 4], [eos]]
+    assert len(prefixes) == K - 1
+
+    def chained(logp, enc_len):
+        B = logp.shape[0]
+        rows = []
+        for seq in prefixes:
+            r = init_prefix_state(logp, enc_len, 1, blank)
+            for j, tok in enumerate(seq):
+                lens = torch.full((B, 1), j, dtype=torch.long, device=dev)
+                last = torch.full((B, 1), seq[j - 1] if j else -1, dtype=torch.long, device=dev)
+                r = ctc_prefix_scores_reference(logp, enc_len, lens, last, r, blank)[2][:, :, tok]
+            rows.append(r)
+        rows.append(torch.full_like(rows[0], NEG_INF))  # an impossible prefix
+        lens = torch.tensor([len(q) for q in prefixes] + [3], device=dev).expand(B, K)
+        last = torch.tensor([q[-1] if q else -1 for q in prefixes] + [8], device=dev).expand(B, K)
+        return (logp, enc_len, lens.contiguous(), last.contiguous(),
+                torch.cat(rows, 1).contiguous(), blank)
+
+    def first_step(logp, enc_len):
+        zeros = torch.zeros((logp.shape[0], K), dtype=torch.long, device=dev)
+        return (logp, enc_len, zeros, torch.full_like(zeros, -1),
+                init_prefix_state(logp, enc_len, K, blank), blank)
+
+    worst = [0.0, 0.0]  # relative, absolute
+
+    def agree(tag, args):
+        before = ctc_prefix_scores.launches
+        got = ctc_prefix_scores(*args)
+        torch.cuda.synchronize()
+        assert ctc_prefix_scores.launches == before + 1, tag
+        want = ctc_prefix_scores_reference(*args)
+        assert got[2].shape == want[2].shape and got[2].stride() == want[2].stride(), tag
+        rel = err = 0.0
+        dead = 0
+        for name, g, w in zip(("psi", "full", "r_new"), got, want):
+            d = w == NEG_INF
+            assert torch.equal(g == NEG_INF, d), f"K2 {tag}: {name}'s NEG_INF entries moved"
+            g, w = g[~d], w[~d]
+            assert torch.isfinite(g).all() and (g > -1e29).all(), f"K2 {tag}: {name}"
+            e = (g - w).abs()
+            rel = max(rel, (e / w.abs().clamp_min(1e-30)).max().item())
+            err = max(err, e.max().item())
+            dead += int(d.sum())
+        assert rel <= K2_REL, (tag, rel)
+        worst[0], worst[1] = max(worst[0], rel), max(worst[1], err)
+        B, T, _ = args[0].shape
+        log(f"[k2] {tag} (B, K, V, T) {(B, K, V, T)}: max rel err {rel:.3e} (limit {K2_REL}), "
+            f"max|err| {err:.3e}; {dead} NEG_INF entries exact")
+        return dead
+
+    def timed(tag, args):
+        B, T, _ = args[0].shape
+        ms = graph_ms(lambda: ctc_prefix_scores(*args))
+        plain = cuda_ms(lambda: ctc_prefix_scores_reference(*args), reps=1, repeats=3)
+        bound, nbytes = k2_bound_ms(B, K, V, T)
+        log(f"[k2] {tag} (B, K, V, T) {(B, K, V, T)}: kernel_ms={ms:.4f} plain_ms={plain:.3f} "
+            f"bound_ms={bound:.5f} ({nbytes / 1e6:.2f} MB, bytes) share_of_bound={bound / ms:.3f}")
+        return ms, plain, bound
+
+    logp = torch.log_softmax(e2e["ctc_all"], -1)
+    enc_len = e2e["enc_len_all"]
+    main = chained(logp, enc_len)
+    assert agree("phase 5's batch", main) > 0
+    agree("phase 5's batch, first step", first_step(logp, enc_len))
+    n1 = int(enc_len[0])
+    one = (logp[:1, :n1].contiguous(), enc_len[:1])
+    assert agree("one utterance", chained(*one)) > 0
+    agree("one utterance, first step", first_step(*one))
+    B, T = K2_CELL_BT
+    cell_logp = torch.log_softmax(torch.randn(B, T, V, generator=gen) * 2, -1).to(dev)
+    cell_len = torch.linspace(100, T, B).round().long().to(dev)
+    cell = chained(cell_logp, cell_len)
+    assert agree("the decode cell's longest batch", cell) > 0
+    timed("phase 5's batch", main)
+    ms, plain, bound = timed("the decode cell's longest batch", cell)
+    log(f"[k2] phase 5 (b) took {time.perf_counter() - t_phase:.1f} s")
+    return dict(shape=[B, K, V, T], max_rel_err=worst[0], max_abs_err=worst[1], ms=ms,
+                plain_ms=plain, bound_ms=bound)
 
 
 def _rel(a, b):
@@ -1688,12 +1851,16 @@ def serve_phase(x, lens, fdlp_cfg, feats, nfr, rng, dev, tmp):
     build_egs(((f"utt{b}", feats[b, : int(nfr[b])].cpu().numpy())
                for b in range(SERVE_RECOG_UTTS)), egs, cmvn=(mean, std))
     common = ["--lm_dir", lm_dir, "--max_len", str(SERVE_RECOG_MAX_LEN), "--device", str(dev)]
+    k2_reset()
     t_jit, hyp_jit = _synced(lambda: recog_e2e.main(
         [model_dir, egs, os.path.join(tmp, "hyp_jit"), "--jit_decode", "--batch_size",
          str(SERVE_RECOG_UTTS), *common]))
+    k2_read("recog_e2e_jit")
+    k2_reset()
     t_str, hyp_str = _synced(lambda: recog_e2e.main(
         [model_dir, egs, os.path.join(tmp, "hyp_stream"), "--streaming", "--streaming_final",
          "beam", *common]))
+    k2_read("stream_final_beam")  # one B = 1 search an utterance
     assert sorted(hyp_jit) == sorted(hyp_str) and len(hyp_jit) == SERVE_RECOG_UTTS
     lm = recog_e2e._load_lm(lm_dir, device=dev)
     recog_gaps = []
@@ -2263,11 +2430,13 @@ def conformer_phase(x, lens, fdlp_cfg, feats, nfr, rng, dev, tmp):
 
     # the main path, counted, through the entry point a user calls
     lpc_cepstra.launches = 0
+    k2_reset()
     t_first, texts = _synced(lambda: recognize_batch(
         x, lens, fdlp_cfg, mean, std, asr, vocab, lm=lm, **E2E_BEAM, max_len=CONF_MAX_LEN,
         device=dev))
     launches = lpc_cepstra.launches
     assert launches > 0, "the conformer path did not launch K1"
+    k2_read("conformer_e2e")
     t_front, (f, n) = wall_s(lambda: front(fdlp_cfg))
     t_enc, (mem, enc_len, ctc) = wall_s(lambda: encode(f, n))
     # recognize_batch has just run this search: no warm-up call
@@ -2650,8 +2819,10 @@ def incremental_phase(e2e, dev):
 
     search(True, n=2, max_len=5)  # first launches of the step's shapes
     t_full, (tf, sf) = _synced(lambda: search(False))
+    k2_reset()
     t_inc, (ti, si) = _synced(lambda: search(True))
-    steps = int((tf[0, 0] >= 0).sum()) - 1
+    k2_read("incremental", search_steps(ti))
+    steps = search_steps(tf)
     assert torch.isfinite(si).all() and ti.shape == tf.shape
     B = len(enc_len)
     hf = [tokens_to_list(tf[b], sf[b], eos) for b in range(B)]
@@ -2738,11 +2909,13 @@ def bf16_phase(e2e, x, lens, fdlp_cfg, fa, na, rng, dev, tmp):
 
     # the main path in bf16, counted, through the entry point a user calls
     lpc_cepstra.launches = 0
+    k2_reset()
     texts16 = recognize_batch(x, lens, fdlp_cfg, mean, std, asr16, vocab, lm=lm, **E2E_BEAM,
                               max_len=BF16_MAX_LEN, device=dev)
     torch.cuda.synchronize()
     launches = lpc_cepstra.launches
     assert launches > 0, "the bf16 e2e path did not launch K1"
+    k2_read("bf16_e2e")
 
     def encode(m, f=feats, n=nfr):
         with torch.no_grad():
@@ -4365,8 +4538,10 @@ def wordlm_phase(x, lens, fdlp_cfg, rng, dev, tmp):
               j("wlm_egs_cpu"))
     common = ["--word_lm_dir", store, "--word_lm_dict", j("wlm_dict.txt"), "--beam_size",
               str(E2E_BEAM["beam_size"]), "--max_len", str(WORDLM_MAX_LEN)]
+    k2_reset()
     t_off, hyps = _synced(lambda: recog_e2e.main(
         [j("cl_m5"), j("wlm_egs"), j("wlm_hyp.txt"), *common, "--device", str(dev)]))
+    k2_read("wordlm_decode")
     t_str, hyps_s = _synced(lambda: recog_e2e.main(
         [j("cl_m5"), j("wlm_egs"), j("wlm_hyp_stream.txt"), *common, "--streaming",
          "--attn_chunk", str(SERVE_CHUNK["attn_chunk"]), "--attn_left_chunks",
@@ -4396,7 +4571,8 @@ def wordlm_phase(x, lens, fdlp_cfg, rng, dev, tmp):
     device_breakdown("word-LM search, 5 steps", lambda: beam_search_encoded(
         model, mem, el, ctc, max_len=5, prefix_scorer=wlm, **E2E_BEAM), top=4)
     lookups = st["hits"] + st["misses"]
-    per = {k: 1e3 * v / steps for k, (v, _) in timings.items() if k.startswith("search.")}
+    per = {k[len("search."):]: 1e3 * v / steps for k, (v, _) in timings.items()
+           if k.startswith("search.")}
     log(f"[wordlm] train_lm.main --unit word --word_vocab_size {WORDLM_VOCAB}: "
         f"{len(texts)} transcripts, {len(batches)} batches of 64 (bptt 128), 1 x 1000 GRU, "
         f"embed 256: one epoch {t_main:.2f} s (checkpoints included), nll {nll[0]:.4f}; a step "
@@ -4411,7 +4587,7 @@ def wordlm_phase(x, lens, fdlp_cfg, rng, dev, tmp):
         f"hypotheses card vs CPU identical on {WORDLM_CPU_UTTS} (CPU {t_cpu:.2f} s); "
         f"hypothesis words {[len(h.split()) for h in hyps.values()]}")
     log(f"[wordlm] one search of {steps} steps, ms a step: decoder {per.get('decoder', 0):.2f}, "
-        f"CTC {per.get('ctc', 0):.2f}, word LM {per.get('lm', 0):.2f} (device "
+        f"CTC {per.get('ctc_prefix', 0):.2f}, word LM {per.get('lm', 0):.2f} (device "
         f"{1e3 * st['device_s'] / steps:.2f}, host tree walk {1e3 * st['host_s'] / steps:.2f}), "
         f"top-k {per.get('topk', 0):.2f}, update {per.get('update', 0):.2f}; LRU hit rate "
         f"{100 * st['hits'] / max(lookups, 1):.1f}% of {lookups} history lookups; phase 15 (b) "
@@ -5770,7 +5946,12 @@ def main():
     with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
         native_build = pool.submit(native.build)
         kernels.build()
-        log(f"[build] kernels built in {time.perf_counter() - t0:.2f} s")
+        log(f"[build] K1 built in {time.perf_counter() - t0:.2f} s")
+        t_k2 = time.perf_counter()
+        kernels.build("ctc_prefix")
+        log(f"[build] K2 built in {time.perf_counter() - t_k2:.2f} s: "
+            + "; ".join(ln.strip() for ln in kernels.build_log("ctc_prefix").splitlines()
+                        if "Used" in ln or "spill" in ln))
         log(f"[build] native decoder built ({os.path.basename(native_build.result())}) in "
             f"{time.perf_counter() - t0:.2f} s")
 
@@ -5967,6 +6148,7 @@ def main():
     t5 = time.perf_counter()
     # ---- 5. the e2e slice at wsj_fdlp_e2e ----
     e2e_launches, e2e_model = e2e_phase(x, lens, e2e, rng, dev)
+    k2 = k2_phase(e2e_model, gen, dev)
     phase_done(5, t5, t_run)
 
     # ---- 6-7. the training paths; 8. online serving ----
@@ -6067,6 +6249,24 @@ def main():
         "bound_ms": bound,
         "bound_by": by,
         # no single PyTorch call computes Levinson-Durbin + LPC cepstra
+        "library_ms": None,
+    }, {
+        "name": "ctc_prefix",
+        "route": "cuda",
+        "source": "speech_recognition_tools_tpu_torch/csrc/ctc_prefix.cu",
+        # no Pallas kernel: XLA fused the JAX package's lax.scan
+        "replaces": "speech_recognition_tools_tpu/decode/ctc_prefix.py (lax.scan)",
+        "launches": K2_LAUNCHES["e2e"],
+        "launches_by_path": K2_LAUNCHES,
+        "shape": k2["shape"],
+        "max_abs_err": k2["max_abs_err"],
+        "max_rel_err": k2["max_rel_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": "bytes",
+        # F.ctc_loss sums over every alignment of one whole sequence: not
+        # the prefix scores of every extension of a beam
         "library_ms": None,
     }]}))
 

@@ -8,17 +8,29 @@ utterance its own valid frame count enc_len[b].
 
 The prefix score (Watanabe et al. 2017, as in ESPnet's asr_recog) of
 extending prefix g by token c is maintained with per-frame blank and
-non-blank forward variables. The forward scan over frames is a loop over
-time, batched over (B, K, V) and kept in the JAX package's order.
+non-blank forward variables, scanned over the frames.
 
 NEG_INF (-1e30) stands for log 0, and `_logaddexp` keeps the JAX
 package's handling of it (a sum of two NEG_INF terms stays exactly
 NEG_INF); torch.logaddexp is a different function there.
+
+`ctc_prefix_scores` launches kernel K2 (csrc/ctc_prefix.cu, built for
+sm_90a at first use by kernels.py) for CUDA float32 input: the whole
+frame scan in one launch, one thread per (b, k, c) chain. For CPU input
+it runs the plain version, `ctc_prefix_scores_reference`: the scan as a
+Python loop over frames, batched over (B, K, V) and kept in the JAX
+package's order. It never falls back from the kernel to the plain
+version: CUDA input the kernel does not take raises.
 """
+
+import threading
 
 import torch
 
+from speech_recognition_tools_tpu_torch import kernels
+
 NEG_INF = -1e30
+_count_lock = threading.Lock()  # serving threads search concurrently
 
 
 def _logaddexp(a, b):
@@ -33,8 +45,10 @@ def _last_frame(enc_len: torch.Tensor, T: int) -> torch.Tensor:
     return (enc_len - 1).clamp(0, T - 1)
 
 
-def ctc_prefix_scores(logp, enc_len, prefix_lens, last_tokens, r_prev, blank_id=0):
-    """Score all single-token extensions of K prefixes of B utterances.
+def ctc_prefix_scores_reference(logp, enc_len, prefix_lens, last_tokens, r_prev,
+                                blank_id=0):
+    """Score all single-token extensions of K prefixes of B utterances:
+    the plain version of kernel K2, on any device.
 
     Args:
       logp: (B, T, V) CTC log-posteriors.
@@ -83,6 +97,76 @@ def ctc_prefix_scores(logp, enc_len, prefix_lens, last_tokens, r_prev, blank_id=
     contrib = (phi_pick + lp[:, :, None, :]).masked_fill(~valid[:, :, None, None], NEG_INF)
     psi = torch.logsumexp(contrib, dim=0)
     return psi, full, r_new
+
+
+def ctc_prefix_scores(logp, enc_len, prefix_lens, last_tokens, r_prev, blank_id=0):
+    """ctc_prefix_scores_reference's function (same arguments, same
+    returns): kernel K2 in one launch on the current stream for CUDA
+    float32 `logp`, the plain version for CPU input.
+
+    The kernel takes logp (B, T, V) contiguous, enc_len (B,) and
+    prefix_lens, last_tokens (B, K) contiguous int64, and r_prev (B, K,
+    T, 2) float32 whose (T, 2) rows are contiguous (an expanded beam axis,
+    as init_prefix_state returns, is fine), all on logp's card. An int32
+    enc_len (encode_ring passes the egs' int32 lengths through) is widened
+    to int64 first, as the plain version takes any integer lengths.
+    Anything else raises.
+    """
+    if logp.device.type == "cpu":
+        return ctc_prefix_scores_reference(logp, enc_len, prefix_lens, last_tokens, r_prev,
+                                           blank_id)
+    if logp.device.type != "cuda":
+        raise ValueError(f"ctc_prefix_scores runs on cuda or cpu tensors, not {logp.device}")
+    if logp.dtype != torch.float32 or r_prev.dtype != torch.float32:
+        raise TypeError(f"the ctc_prefix kernel takes float32 logp and r_prev, not "
+                        f"{logp.dtype} and {r_prev.dtype}")
+    if logp.ndim != 3 or min(logp.shape[1:]) < 1:
+        raise ValueError(f"expected (B, T >= 1, V >= 1) logp, got {tuple(logp.shape)}")
+    B, T, V = logp.shape
+    K = last_tokens.shape[-1] if last_tokens.ndim == 2 else -1
+    if enc_len.dtype == torch.int32:
+        enc_len = enc_len.long()
+    for name, x, shape in (("enc_len", enc_len, (B,)), ("prefix_lens", prefix_lens, (B, K)),
+                           ("last_tokens", last_tokens, (B, K))):
+        if tuple(x.shape) != shape or x.dtype != torch.int64:
+            raise ValueError(f"the ctc_prefix kernel takes {name} as int64 {shape}, not "
+                             f"{x.dtype} {tuple(x.shape)}")
+    if tuple(r_prev.shape) != (B, K, T, 2):
+        raise ValueError(f"expected r_prev of shape {(B, K, T, 2)}, got {tuple(r_prev.shape)}")
+    for name, x in (("logp", logp), ("enc_len", enc_len), ("prefix_lens", prefix_lens),
+                    ("last_tokens", last_tokens), ("r_prev", r_prev)):
+        if x.device != logp.device:
+            raise ValueError(f"{name} is on {x.device}, logp on {logp.device}")
+        if x is not r_prev and not x.is_contiguous():
+            raise ValueError(f"the ctc_prefix kernel needs a contiguous {name} "
+                             f"(strides {x.stride()})")
+    if r_prev.stride(3) != 1 or (T > 1 and r_prev.stride(2) != 2):
+        raise ValueError("the ctc_prefix kernel needs r_prev's (T, 2) rows contiguous "
+                         f"(strides {r_prev.stride()})")
+    if not 0 <= blank_id < V:
+        raise ValueError(f"blank_id {blank_id} is not a token of {V}")
+    psi = torch.empty((B, K, V), dtype=torch.float32, device=logp.device)
+    full = torch.empty_like(psi)
+    seq = torch.empty((T, 2, B, K, V), dtype=torch.float32, device=logp.device)
+    r_new = seq.permute(2, 3, 4, 0, 1)  # (B, K, V, T, 2), as the plain version returns it
+    if psi.numel() == 0:
+        return psi, full, r_new
+    lib = kernels.load("ctc_prefix")
+    stream = torch.cuda.current_stream(logp.device).cuda_stream
+    rc = lib.ctc_prefix_f32(
+        logp.data_ptr(), enc_len.data_ptr(), prefix_lens.data_ptr(), last_tokens.data_ptr(),
+        r_prev.data_ptr(), r_prev.stride(0), r_prev.stride(1), B, K, V, T, blank_id,
+        psi.data_ptr(), full.data_ptr(), seq.data_ptr(), stream)
+    if rc != 0:
+        msg = lib.ctc_prefix_error_string(rc).decode()
+        raise RuntimeError(f"ctc_prefix kernel launch failed: {msg} ({rc}) at (B, K, V, T) "
+                           f"{(B, K, V, T)}")
+    with _count_lock:
+        ctc_prefix_scores.launches += 1
+    return psi, full, r_new
+
+
+ctc_prefix_scores.launches = 0
 
 
 def init_prefix_state(logp, enc_len, beam_size, blank_id=0):

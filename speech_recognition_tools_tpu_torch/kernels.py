@@ -1,12 +1,21 @@
-"""Build and load the port's hand-written CUDA kernel.
+"""Build and load the port's hand-written CUDA kernels.
 
-The kernel is `csrc/lpc_cepstra.cu` with a plain C interface. Each lane
-count of its instantiations (`K1_LANE_LIST` in the source) is compiled by
-its own `nvcc -c -DK1_LANES=L` process, all started together, beside one
-more for the C entry point; the objects are linked into a shared library
-under `_build/` (git-ignored) at first use and loaded with `ctypes`. The
-file name carries a hash of the source and the flags, so an edited source
-is rebuilt and an unchanged one is reused.
+Each kernel is a source under `csrc/` with a plain C interface (entry
+points `<name>_f32` and `<name>_error_string`), compiled by `nvcc -c`
+processes started together, linked into a shared library of its own
+under `_build/` (git-ignored) at first use and loaded with `ctypes`. A
+library's file name carries a hash of its source, its units and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
+
+- K1, "lpc_cepstra" (`csrc/lpc_cepstra.cu`): each lane count of its
+  instantiations (`K1_LANE_LIST` in the source) is compiled by its own
+  `nvcc -c -DK1_LANES=L` process, beside one more for the C entry point.
+- K2, "ctc_prefix" (`csrc/ctc_prefix.cu`): one unit.
+
+One library a kernel, so that an edit of either source rebuilds that
+kernel alone: featgen and serving, which load K1 only, keep K1's library
+(its path is a function of K1's source, units and flags alone), and the
+beam search's first step pays K2's one-unit build alone.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a machine without `nvcc`. `instantiations()` reads the source
@@ -16,6 +25,7 @@ only, so it works there too.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -24,16 +34,17 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from typing import Callable
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "lpc_cepstra.cu")
+SOURCE = os.path.join(_PKG_DIR, "csrc", "lpc_cepstra.cu")  # K1's, read by instantiations()
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH, "-shared")
 
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()  # one load, even when threads race to first use
 
 
@@ -57,7 +68,7 @@ def _nvcc() -> str:
             return cand
     raise RuntimeError(
         "nvcc not found (looked on PATH and in /usr/local/cuda/bin); the "
-        "port's CUDA kernel is built from source at first use"
+        "port's CUDA kernels are built from source at first use"
     )
 
 
@@ -68,18 +79,35 @@ def _units() -> list[tuple[str, tuple[str, ...]]]:
     return [("entry", ())] + [(f"lanes{n}", (f"-DK1_LANES={n}",)) for n in lanes]
 
 
-def library_path() -> str:
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    source: str
+    units: Callable[[], list]  # (object name, extra nvcc flags) of each nvcc -c process
+    argtypes: tuple  # of the `<name>_f32` entry point, which returns a cudaError_t
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+KERNELS = {
+    "lpc_cepstra": Kernel(SOURCE, _units, (_P, _P, *[_I] * 8, _P)),
+    "ctc_prefix": Kernel(os.path.join(_PKG_DIR, "csrc", "ctc_prefix.cu"),
+                         lambda: [("ctc_prefix", ())], (*[_P] * 5, _L, _L, *[_I] * 5, *[_P] * 4)),
+}
+
+
+def library_path(name: str = "lpc_cepstra") -> str:
+    """Where a kernel's library is built: `_build/lib<name>-<hash>.so`."""
+    k = KERNELS[name]
     h = hashlib.sha1()
-    with open(SOURCE, "rb") as f:
+    with open(k.source, "rb") as f:
         h.update(f.read())
     h.update(" ".join([*COMPILE_FLAGS, *LINK_FLAGS]).encode())
-    h.update(repr(_units()).encode())
-    return os.path.join(BUILD_DIR, f"liblpc_cepstra-{h.hexdigest()[:12]}.so")
+    h.update(repr(k.units()).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
-def build_log() -> str:
+def build_log(name: str = "lpc_cepstra") -> str:
     """Compiler output (`-Xptxas -v`: registers, shared memory, spills)."""
-    path = library_path() + ".log"
+    path = library_path(name) + ".log"
     if not os.path.exists(path):
         return ""
     with open(path) as f:
@@ -87,8 +115,8 @@ def build_log() -> str:
 
 
 def register_report(log: str | None = None) -> list[dict]:
-    """One entry per compiled kernel instantiation in the build log:
-    lanes, chunk, registers, stack bytes, spill store and load bytes."""
+    """One entry per compiled K1 instantiation in its build log: lanes,
+    chunk, registers, stack bytes, spill store and load bytes."""
     log = build_log() if log is None else log
     report, cur = [], None
     for line in log.splitlines():
@@ -112,14 +140,14 @@ def register_report(log: str | None = None) -> list[dict]:
     return sorted(report, key=lambda d: (d["lanes"], d["chunk"]))
 
 
-def build() -> str:
-    """Compile the kernel unless it is built; return the library's path.
+def build(name: str = "lpc_cepstra") -> str:
+    """Compile a kernel's library unless it is built; return its path.
     Raises with the compiler's output on failure. Ranks are processes: a
     file lock in _build/ lets one of them compile while the others wait
     for its library."""
     import fcntl
 
-    out = library_path()
+    out = library_path(name)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -127,18 +155,18 @@ def build() -> str:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if os.path.exists(out):
             return out
-        return _compile(out)
+        return _compile(out, KERNELS[name].source, KERNELS[name].units())
 
 
-def _compile(out: str) -> str:
+def _compile(out: str, source: str, units) -> str:
     work = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
         nvcc = _nvcc()
         procs = []
-        for name, flags in _units():
+        for name, flags in units:
             obj = os.path.join(work, name + ".o")
             procs.append((obj, subprocess.Popen(
-                [nvcc, *COMPILE_FLAGS, *flags, "-c", "-o", obj, SOURCE],
+                [nvcc, *COMPILE_FLAGS, *flags, "-c", "-o", obj, source],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         logs, failed = [], []
         for obj, proc in procs:  # wait for every process, even after a failure
@@ -163,20 +191,20 @@ def _compile(out: str) -> str:
     return out
 
 
-def load() -> ctypes.CDLL:
-    """The kernel's shared library, built first if needed."""
-    global _lib
+def load(name: str = "lpc_cepstra") -> ctypes.CDLL:
+    """A kernel's shared library, built first if needed."""
     with _load_lock:
-        if _lib is None:
-            _lib = _open(build())
-    return _lib
+        if name not in _libs:
+            _libs[name] = _open(name, build(name))
+    return _libs[name]
 
 
-def _open(path: str) -> ctypes.CDLL:
+def _open(name: str, path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
-    lib.lpc_cepstra_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                    *[ctypes.c_int] * 8, ctypes.c_void_p]
-    lib.lpc_cepstra_f32.restype = ctypes.c_int
-    lib.lpc_cepstra_error_string.argtypes = [ctypes.c_int]
-    lib.lpc_cepstra_error_string.restype = ctypes.c_char_p
+    entry = getattr(lib, f"{name}_f32")
+    entry.argtypes = list(KERNELS[name].argtypes)
+    entry.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
