@@ -35,7 +35,17 @@ one) through the look-ahead prefix tree (decode/wordlm.py), with the word
 list of `--word_lm_dict` ('word id' lines) or the LM dir's vocab.json, in
 the offline search and in `--streaming`'s beam final, as the JAX CLI does;
 it excludes `--lm_dir`, `--api cl` and `--jit_decode` (ValueError here,
-where the JAX CLI asserts). `--ring_attention S` encodes through ring
+where the JAX CLI asserts).
+
+A speech-LLM model directory (models/speech_llm.py's `save`; config.json's
+"model" is "speech_llm") decodes through the same batched search, its LLM
+KV-cached (the audio prefix prefilled once an utterance), with the LLM's
+scores alone: it has no CTC head and is its own LM, so `--ctc_weight`
+above 0, `--lm_dir`, `--word_lm_dir`, `--streaming`, `--api cl` and
+`--ring_attention` are refused for it (ValueError). `--ctc_weight`
+defaults to 0.3 for the CTC/attention models and to 0 for it.
+
+`--ring_attention S` encodes through ring
 attention (models/transformer_asr.py::encode_ring) over the first S ranks
 of a torch.distributed world (torchrun; the JAX CLI's first S devices),
 with the host beam decode only (not --jit_decode or --api cl); every rank
@@ -60,7 +70,9 @@ def get_parser():
                    help="'cl': the continual-learning fusion of the comma-separated models")
     p.add_argument("--pm_scores", help="(cl) comma-separated PM scores, one per model")
     p.add_argument("--beam_size", type=int, default=10)
-    p.add_argument("--ctc_weight", type=float, default=0.3)
+    p.add_argument("--ctc_weight", type=float, default=None,
+                   help="CTC prefix score weight; default 0.3, or 0 for a speech-LLM "
+                        "model (which has no CTC head)")
     p.add_argument("--penalty", type=float, default=0.0)
     p.add_argument("--max_len", type=int, default=200)
     p.add_argument("--ref_text", help="reference text for WER")
@@ -128,17 +140,25 @@ def _load(model_dir, ckpt, compute_dtype="float32", attn_chunk=None,
           attn_left_chunks=None, device="cuda"):
     """(model in eval mode on `device`, its config, vocab) of a train_e2e
     model directory (`<model_dir>/<ckpt>/` and `vocab.json`), written by
-    either package."""
+    either package, or of a speech-LLM model directory (the model's own
+    dtype; compute_dtype and the attention overrides do not apply)."""
+    import json
+
     from speech_recognition_tools_tpu_torch.io.jax_params import transformer_asr_from_jax
     from speech_recognition_tools_tpu_torch.io.text import load_vocab
+    from speech_recognition_tools_tpu_torch.models import speech_llm
     from speech_recognition_tools_tpu_torch.models.transformer_asr import (
         TransformerASR,
         TransformerASRConfig,
     )
     from speech_recognition_tools_tpu_torch.train.checkpoint import load_checkpoint
 
-    payload, cfg_d = load_checkpoint(os.path.join(model_dir, ckpt))
     vocab = load_vocab(os.path.join(model_dir, "vocab.json"))
+    with open(os.path.join(model_dir, ckpt, "config.json")) as f:
+        if speech_llm.is_speech_llm(json.load(f)):
+            model = speech_llm.load(os.path.join(model_dir, ckpt), device)
+            return model, model.cfg, vocab
+    payload, cfg_d = load_checkpoint(os.path.join(model_dir, ckpt))
     cfg = TransformerASRConfig(
         vocab_size=cfg_d["vocab_size"], adim=cfg_d["adim"], aheads=cfg_d["aheads"],
         elayers=cfg_d["elayers"], eunits=cfg_d["eunits"], dlayers=cfg_d["dlayers"],
@@ -204,6 +224,26 @@ def _ring_encoder(args, model, dev):
     return lambda feats, lengths: encode_ring(model, feats, lengths, mesh)
 
 
+def _check_speech_llm(args, model) -> bool:
+    """Whether `model` is a speech LLM; raises ValueError for the options
+    it does not take."""
+    from speech_recognition_tools_tpu_torch.models.speech_llm import SpeechLLM
+
+    if not isinstance(model, SpeechLLM):
+        return False
+    refused = [("--ctc_weight above 0 (the model has no CTC head)",
+                args.ctc_weight is not None and args.ctc_weight > 0),
+               ("--lm_dir (the LLM is its own LM)", bool(args.lm_dir)),
+               ("--word_lm_dir (the LLM is its own LM)", bool(args.word_lm_dir)),
+               ("--streaming", args.streaming), ("--api cl", args.api == "cl"),
+               ("--ring_attention", args.ring_attention > 1)]
+    bad = [name for name, given in refused if given]
+    if bad:
+        raise ValueError(f"{args.model_dir} is a speech-LLM model: it decodes with the "
+                         f"LLM's scores alone and takes no {', '.join(bad)}")
+    return True
+
+
 def main(argv=None):
     args = get_parser().parse_args(argv)
 
@@ -223,6 +263,9 @@ def main(argv=None):
     loaded = [_load(d, args.ckpt, args.compute_dtype, args.attn_chunk, args.attn_left_chunks,
                     device=dev) for d in args.model_dir.split(",")]
     model, cfg, vocab = loaded[0]
+    llm = _check_speech_llm(args, model)
+    if args.ctc_weight is None:
+        args.ctc_weight = 0.0 if llm else 0.3
     lm = _load_lm(args.lm_dir, device=dev) if args.lm_dir else None
     word_lm = _word_lm(args, vocab, dev) if args.word_lm_dir else None
     beam = dict(beam_size=args.beam_size, max_len=args.max_len, ctc_weight=args.ctc_weight,
@@ -287,7 +330,7 @@ def main(argv=None):
         else:
             toks, scores = beam_search_batched(
                 model, b["feats"], b["lengths"], lm=lm, lm_weight=args.lm_weight,
-                device=dev, prefix_scorer=word_lm, **beam)
+                device=dev, prefix_scorer=word_lm, incremental=llm, **beam)
             seqs = [tokens_to_list(toks[i], scores[i], cfg.eos_id) for i in range(len(b["keys"]))]
         for key, seq in zip(b["keys"], seqs):
             hyps[key] = decode_tokens(seq, vocab)

@@ -36,7 +36,15 @@ prefixes, added to the LM column without normalisation.
 incremental=True runs the decoder in its KV-cached decode mode (one token
 a step against each layer's key/value cache, the caches reordered with the
 beams every step) instead of the full-prefix pass; the search is
-token-identical either way.
+token-identical either way. The cache is made once from the B utterances'
+memory (`decode_init_cache` gets B rows and the B * K token buffer), so a
+model that prefills its cache (models/speech_llm.py) does so once an
+utterance, not once a beam.
+
+A model with no CTC head (`ctc_logits` None, ctc_weight 0: the speech LLM)
+scores with the decoder and the LM alone: the CTC prefix state, its
+per-step scores and its reordering are skipped, and the total is what the
+CTC branch gives at ctc_weight 0.
 """
 
 import torch
@@ -72,8 +80,9 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
                         prefix_scorer=None):
     """The search proper, from the encoder's output (model.encode).
 
-    memory (B, T2, adim), enc_len (B,), ctc_logits (B, T2, V), all on the
-    model's device; lm: an RNNLM on the same device, or None.
+    memory (B, T2, adim), enc_len (B,), ctc_logits (B, T2, V) or None (no
+    CTC head; ctc_weight must be 0), all on the model's device; lm: an
+    RNNLM on the same device, or None.
 
     prefix_scorer: the JAX host search's `lm_apply` hook
     (models/transformer_asr.py::beam_search), e.g. decode/wordlm.py's
@@ -83,8 +92,9 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
     `lm`.
 
     incremental: run the decoder KV-cached (model.decode_incremental), its
-    cache initialised from the token buffer and its positional table
-    max(max_len + 1, 16) rows long, as beam_search_jit(incremental=True).
+    cache initialised from the token buffer and the B utterances' memory
+    and its positional table max(max_len + 1, 16) rows long, as
+    beam_search_jit(incremental=True).
 
     Spans (utils/profiling.py): `search`, counting the steps run, holds
     `search.init` and per step `search.decoder`, `search.lm`,
@@ -96,15 +106,18 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
     """
     if lm is not None and prefix_scorer is not None:
         raise ValueError("lm and prefix_scorer are exclusive")
+    use_ctc = ctc_logits is not None
+    if not use_ctc and ctc_weight != 0:
+        raise ValueError(f"ctc_weight {ctc_weight} needs CTC logits; the model has no CTC head")
     cfg = model.cfg
     B, T2, _ = memory.shape
     K, V = beam_size, cfg.vocab_size
     dev = memory.device
     with span("search") as search:
         with span("search.init"):
-            ctc_logp = torch.log_softmax(ctc_logits, dim=-1)
             # memory in the compute dtype once, not at every step's projections
-            mem = memory.to(cfg.cdtype or memory.dtype).repeat_interleave(K, dim=0)
+            mem_b = memory.to(cfg.cdtype or memory.dtype)
+            mem = mem_b.repeat_interleave(K, dim=0)
             mem_len = enc_len.repeat_interleave(K)
             utt = torch.arange(B, device=dev)[:, None]  # (B, 1)
 
@@ -115,12 +128,14 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
             lm_cum = torch.zeros((B, K), device=dev)
             scores = att_cum.clone()
             finished = torch.zeros((B, K), dtype=torch.bool, device=dev)
-            last_tokens = torch.full((B, K), -1, dtype=torch.long, device=dev)
-            prefix_lens = torch.zeros((B, K), dtype=torch.long, device=dev)
-            r_state = init_prefix_state(ctc_logp, enc_len, K, cfg.blank_id)
-            last_f = (enc_len - 1).clamp(0, T2 - 1)
+            if use_ctc:
+                last_tokens = torch.full((B, K), -1, dtype=torch.long, device=dev)
+                prefix_lens = torch.zeros((B, K), dtype=torch.long, device=dev)
+                ctc_logp = torch.log_softmax(ctc_logits, dim=-1)
+                r_state = init_prefix_state(ctc_logp, enc_len, K, cfg.blank_id)
+                last_f = (enc_len - 1).clamp(0, T2 - 1)
             lm_state = lm.init_state(B * K) if lm is not None else None
-            cache = model.decode_init_cache(tokens, mem, mem_len) if incremental else None
+            cache = model.decode_init_cache(tokens, mem_b, enc_len) if incremental else None
             pe_len = max(max_len + 1, 16)
 
         for step in range(max_len):
@@ -144,17 +159,20 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
                                           dtype=torch.float32)
                     new_lm = new_lm + raw.to(dev).view(B, K, V)
 
-            with span("search.ctc_prefix"):
-                psi, _, r_new = ctc_prefix_scores(ctc_logp, enc_len, prefix_lens, last_tokens,
-                                                  r_state, cfg.blank_id)
-                r_last = r_state[utt[:, 0], :, last_f]  # (B, K, 2)
-                ctc_part = psi.clone()
-                ctc_part[..., cfg.eos_id] = torch.logaddexp(r_last[..., 0], r_last[..., 1])
-                ctc_part[..., cfg.blank_id] = NEG_INF
+            if use_ctc:
+                with span("search.ctc_prefix"):
+                    psi, _, r_new = ctc_prefix_scores(ctc_logp, enc_len, prefix_lens,
+                                                      last_tokens, r_state, cfg.blank_id)
+                    r_last = r_state[utt[:, 0], :, last_f]  # (B, K, 2)
+                    ctc_part = psi.clone()
+                    ctc_part[..., cfg.eos_id] = torch.logaddexp(r_last[..., 0], r_last[..., 1])
+                    ctc_part[..., cfg.blank_id] = NEG_INF
 
             with span("search.topk"):
-                total = ((1.0 - ctc_weight) * new_att + ctc_weight * ctc_part
-                         + lm_weight * new_lm + penalty * (step + 1))
+                total = (1.0 - ctc_weight) * new_att
+                if use_ctc:
+                    total = total + ctc_weight * ctc_part
+                total = total + lm_weight * new_lm + penalty * (step + 1)
                 done = torch.full_like(total, NEG_INF)
                 done[..., cfg.eos_id] = 0.0
                 done = done + torch.where(finished, scores, 0.0)[..., None]
@@ -177,10 +195,11 @@ def beam_search_encoded(model, memory, enc_len, ctc_logits, *, beam_size=10,
                     lm_state = lm.reorder_state(lm_next, rows)
                 scores = top_scores
                 finished = ends
-                last_tokens = torch.where(ends, last_tokens.gather(1, beam_idx), tok)
-                prefix_lens = prefix_lens.gather(1, beam_idx) + (~ends).long()
-                r_state = torch.where(ends[..., None, None], r_state[utt, beam_idx],
-                                      r_new[utt, beam_idx, tok])
+                if use_ctc:
+                    last_tokens = torch.where(ends, last_tokens.gather(1, beam_idx), tok)
+                    prefix_lens = prefix_lens.gather(1, beam_idx) + (~ends).long()
+                    r_state = torch.where(ends[..., None, None], r_state[utt, beam_idx],
+                                          r_new[utt, beam_idx, tok])
                 all_done = finished.all()
             with span("search.wait"):
                 stop = bool(all_done)

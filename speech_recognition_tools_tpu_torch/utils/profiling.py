@@ -116,6 +116,11 @@ def span(name: str, n=None):
     return _Span(name, n)
 
 
+def recording() -> bool:
+    """Whether spans record in this thread now (a profiler session runs)."""
+    return _enabled()
+
+
 def span_records() -> list:
     """Every recorded span, in the order they ended (a child before its
     parent), their counts as Python numbers."""
