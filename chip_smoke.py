@@ -10,7 +10,7 @@ exits non-zero. Phases:
 
   1. the card's name and power limit (nvidia-smi) and the kernel builds,
      with each K1 instantiation's registers and spills (none allowed in
-     those the configs' launch plans pick) and K2's;
+     those the configs' launch plans pick), K2's and K3's;
   2. K1 (csrc/lpc_cepstra.cu) against its plain PyTorch version on AR
      lags (rtol = atol = 1e-4) at the three config shapes, ragged and odd
      row counts, unity gain, lim = 1, lim = 2, lim > order + 1, and orders
@@ -59,10 +59,17 @@ exits non-zero. Phases:
      classes -> train_am.main --arch rnn (3 x 512 GRU, Adam lr 1e-3, clip
      1.0, lrr 0.5) for 2 epochs of 2 batches plus a dev batch; finite
      losses, a checkpoint that loads back, K1's launches counted over the
-     path; one step card against CPU on the same weights and batch (loss
+     path, K3's over train_am.main (2 x layers a train step and layers a
+     dev batch, the main path's count); one step card against CPU on the same weights and batch (loss
      1e-5 relative, gradient norm 1e-4 relative, update 1e-3 x lr); ms a
      step split into forward, backward and optimizer, peak memory and a
-     profile;
+     profile; (b) K3 (csrc/gru_scan.cu) against its plain loop (k3_phase:
+     a layer's outputs and gradients at the timit_hybrid.train cell's
+     longest batch and at the RNNLM's lm_loss shape; K3_REL), its forward
+     and backward kernel ms by CUDA-graph replay beside the operations
+     bound, a layer's forward and backward through autograd, the plain
+     loop's and torch.nn.GRU's (cuDNN, a yardstick only) at the cell's
+     batch, and its launches over one train_am --arch rnn step (6);
   7. e2e training at wsj_fdlp_e2e on phase 3's 32 utterances: FDLP (K1) ->
      global CMVN -> build_egs (each utterance twice, with two seeded
      transcripts over the 52-symbol vocabulary that CTC can align, some
@@ -308,10 +315,14 @@ exits non-zero. Phases:
      2 over phase 6's egs, first step against one process (same limits).
      Each path's ms and the share of it spent in exchanges are logged;
   19. one JSON line describing every kernel of the port (`launches` is the
-     main path's count: K1's on the hybrid slice, K2's on the e2e one;
-     `launches_by_path` each path's: K2's over the e2e, incremental, bf16,
-     conformer and word-LM searches and recog_e2e's --jit_decode and
-     --streaming final beam);
+     main path's count: K1's on the hybrid slice, K2's on the e2e one,
+     K3's over phase 6's train_am.main; `launches_by_path` each path's:
+     K2's over the e2e, incremental, bf16, conformer and word-LM searches
+     and recog_e2e's --jit_decode and --streaming final beam; K3's over
+     the hybrid training, one train step, the RNNLM stage, the hybrid
+     posteriors, the MFCC training, the PM stage, the zoo, adaptation,
+     lifelong decoding, alignment and each rank of train_am
+     --data_parallel and --expert_parallel, every one at least 1);
   20. the run's time, the card's name and power limit again, then the last
      line: {"ok": true, "device": {...}}.
 """
@@ -362,6 +373,16 @@ E2E_CTC_TOL = 1.2e-3
 # 5's batch and at (B, T) of the wsj_fdlp_e2e.decode cell's longest batch
 K2_REL = 1e-5
 K2_CELL_BT = (8, 303)
+# K3 (csrc/gru_scan.cu) against the plain loop: a layer's outputs and the
+# gradients of its four parameters, each the worst entry's gap over the
+# largest entry, within K3_REL; timed at the timit_hybrid.train cell's
+# longest batch (B, T, H): 32 utterances of 5.5-6 s (K3_CELL_LENS frames)
+# in 32-frame buckets; held also at the RNNLM's lm_loss shape K3_LM (B, T,
+# D, H), the weight slice read from L2
+K3_REL = 2e-5
+K3_CELL = (32, 608, 512)
+K3_CELL_LENS = (551, 600)
+K3_LM = (8, 50, 256, 1000)
 
 # training (phases 6-7): timit_hybrid's am section and wsj_fdlp_e2e's
 # (:17-34), at full width; two epochs of two batches each
@@ -825,6 +846,29 @@ def k2_read(path, steps=None):
     return n
 
 
+# K3's launches by GRU path, for phase 19's kernels line: each path sets
+# the counter to 0 (k3_reset) before it runs and reads it right after
+# (k3_read); phase 19 holds every path to at least one launch
+K3_LAUNCHES = {}
+
+
+def k3_reset():
+    from speech_recognition_tools_tpu_torch.ops.gru_scan import gru_scan
+
+    gru_scan.launches = 0
+
+
+def k3_read(path, want=None):
+    """K3's launches since k3_reset(), kept under K3_LAUNCHES[path]; where
+    `want` says how many the path makes, exactly that many."""
+    from speech_recognition_tools_tpu_torch.ops.gru_scan import gru_scan
+
+    n = gru_scan.launches
+    assert want is None or n == want, (path, n, want)
+    K3_LAUNCHES[path] = n
+    return n
+
+
 def search_steps(toks):
     """Steps a beam search ran, from its (B, K, max_len + 1) tokens: every
     step fills its column in every row, finished rows included."""
@@ -839,6 +883,25 @@ def k2_bound_ms(B, K, V, T):
     nbytes = 4 * (B * T * V + B * K * T * 2 + 2 * T * B * K * V + 2 * B * K * V)
     nbytes += 8 * (B + 2 * B * K)
     return 1e3 * nbytes / H100_BYTES_PER_S, nbytes
+
+
+def k3_work(B, T, H, lengths):
+    """(flops, bytes) of K3's forward and of its backward at (B, T, H)
+    over the valid frames: the recurrent product 2 3H H a valid frame each
+    way (the gate algebra's ~30 operations a unit are under 1%); bytes read
+    or written once: forward xi (valid frames), y (all), the gates (4H,
+    valid), W_hh; backward dy, h_{t-1} and the gates (valid), dxi and dhh
+    (all), W_hh."""
+    valid = int(sum(min(max(int(n), 0), T) for n in lengths))
+    flops = 2 * 3 * H * H * valid
+    fwd = 4 * (valid * 3 * H + B * T * H + valid * 4 * H + 3 * H * H)
+    bwd = 4 * (valid * 6 * H + B * T * 6 * H + 3 * H * H)
+    return (flops, fwd), (flops, bwd)
+
+
+def k3_bound_ms(flops, nbytes):
+    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def cep_agreement(tag, got, ref):
@@ -1252,6 +1315,130 @@ def k2_phase(e2e, gen, dev):
                 plain_ms=plain, bound_ms=bound)
 
 
+def k3_phase(gen, dev):
+    """Phase 6 (b): K3 (csrc/gru_scan.cu) through ops/gru_scan.py::gru_scan
+    against its plain loop, gru_scan_reference, on the card: a layer's
+    outputs and the gradients of weight_ih, bias_ih, weight_hh and bias_hn
+    (autograd through each) at the timit_hybrid.train cell's longest batch
+    K3_CELL (a later layer, D = H) and at the RNNLM's K3_LM, within K3_REL;
+    one launch forward, one backward. Timed at the cell's batch: the
+    forward kernel with and without the gates it stores for the backward,
+    the backward kernel (CUDA-graph replay), a layer's forward and backward
+    through autograd (dW_hh's product included), the plain loop's forward
+    and backward, and torch.nn.GRU (cuDNN) over the packed batch forward
+    and backward as a yardstick only (the port never calls it). Then K3's
+    launches over one train step of train_am's --arch rnn model at
+    timit_hybrid's width. Returns the kernels line's numbers."""
+    from speech_recognition_tools_tpu_torch.cli import train_am
+    from speech_recognition_tools_tpu_torch.models.recurrent import MaskedGRULayer
+    from speech_recognition_tools_tpu_torch.ops import gru_scan as k3
+    from speech_recognition_tools_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    worst = 0.0
+
+    def agree(tag, B, T, D, H, lengths):
+        layer = MaskedGRULayer(D, H, device=dev)
+        layer.reset_parameters(gen)
+        x = torch.randn(B, T, D, generator=gen).to(dev)
+        dy = torch.randn(B, T, H, generator=gen).to(dev)
+        lens = torch.as_tensor(lengths, device=dev)
+
+        def run(scan):
+            for p in layer.parameters():
+                p.grad = None
+            xi = torch.nn.functional.linear(x, layer.weight_ih, layer.bias_ih)
+            y = scan(xi, layer.weight_hh, layer.bias_hn, lens)
+            (y * dy).sum().backward()
+            return [y.detach()] + [p.grad.clone() for p in layer.parameters()]
+
+        before = k3.gru_scan.launches
+        got = run(k3.gru_scan)
+        torch.cuda.synchronize()
+        assert k3.gru_scan.launches == before + 2, tag
+        want = run(k3.gru_scan_reference)
+        rel = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+        log(f"[k3] {tag} (B, T, D, H) {(B, T, D, H)}: worst gap over largest entry of y, "
+            f"dW_ih, db_ih, dW_hh, db_hn: " + ", ".join(f"{r:.2e}" for r in rel)
+            + f" (limit {K3_REL})")
+        assert max(rel) <= K3_REL, (tag, rel)
+        return max(rel)
+
+    B, T, H = K3_CELL
+    cell_lens = torch.linspace(*K3_CELL_LENS, B).round().long().tolist()
+    worst = max(agree("the train cell's longest batch", B, T, H, H, cell_lens),
+                agree("the RNNLM's lm_loss", *K3_LM,
+                      torch.linspace(K3_LM[1], 1, K3_LM[0]).round().long().tolist()))
+
+    layer = MaskedGRULayer(H, H, device=dev)
+    layer.reset_parameters(gen)
+    lens = torch.as_tensor(cell_lens, device=dev)
+    xi = torch.randn(B, T, 3 * H, generator=gen).to(dev)
+    dy = torch.randn(B, T, H, generator=gen).to(dev)
+    w, b = layer.weight_hh.detach(), layer.bias_hn.detach()
+    log(f"[k3] layout at H {H}: {k3.launch_plan(H)}")
+    fwd_ms = graph_ms(lambda: k3._kernel_forward(xi, w, b, lens, True), reps=5)
+    infer_ms = graph_ms(lambda: k3._kernel_forward(xi, w, b, lens, False), reps=5)
+    y, gates = k3._kernel_forward(xi, w, b, lens, True)
+    bwd_ms = graph_ms(lambda: k3._kernel_backward(dy, y, gates, w, lens), reps=5)
+    x = torch.randn(B, T, H, generator=gen).to(dev)
+
+    def layer_step(scan):
+        for p in layer.parameters():
+            p.grad = None
+        xi_ = torch.nn.functional.linear(x, layer.weight_ih, layer.bias_ih)
+        (scan(xi_, layer.weight_hh, layer.bias_hn, lens) * dy).sum().backward()
+
+    layer_ms = cuda_ms(lambda: layer_step(k3.gru_scan), reps=3)
+    plain_ms = cuda_ms(lambda: layer_step(k3.gru_scan_reference), reps=1, repeats=3)
+    cudnn = torch.nn.GRU(H, H, batch_first=True, device=dev)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(x, lens.cpu(), batch_first=True,
+                                                     enforce_sorted=False)
+    g_out = torch.randn(packed.data.shape, generator=gen).to(dev)
+
+    def library():
+        cudnn.zero_grad(set_to_none=True)
+        out, _ = cudnn(packed)
+        torch.autograd.backward(out.data, g_out)
+
+    library_ms = cuda_ms(library, reps=3)
+    (f_flops, f_bytes), (b_flops, b_bytes) = k3_work(B, T, H, cell_lens)
+    f_bound, f_by = k3_bound_ms(f_flops, f_bytes)
+    b_bound, b_by = k3_bound_ms(b_flops, b_bytes)
+    log(f"[k3] the train cell's longest batch (B, T, H) {(B, T, H)}, {sum(cell_lens)} valid "
+        f"frames: forward kernel_ms={fwd_ms:.4f} (without the gates {infer_ms:.4f}) "
+        f"bound_ms={f_bound:.4f} ({f_flops / 1e9:.2f} GFLOP, {f_bytes / 1e6:.1f} MB; {f_by}) "
+        f"share_of_bound={f_bound / fwd_ms:.3f}; backward kernel_ms={bwd_ms:.4f} "
+        f"bound_ms={b_bound:.4f} ({b_bytes / 1e6:.1f} MB; {b_by}) share_of_bound="
+        f"{b_bound / bwd_ms:.3f}; a layer forward + backward through autograd "
+        f"{layer_ms:.3f} ms, the plain loop's {plain_ms:.1f} ms, torch.nn.GRU (cuDNN, "
+        f"packed, TF32 off) library_ms={library_ms:.3f}; ms a frame forward "
+        f"{1e3 * fwd_ms / T:.2f} us, backward {1e3 * bwd_ms / T:.2f} us")
+
+    # K3's launches over one train step of train_am's --arch rnn model
+    args = train_am.get_parser().parse_args(
+        ["egs", "out", "--arch", "rnn", "--num_layers", str(HYBRID_TRAIN["num_layers"]),
+         "--hidden_dim", str(HYBRID_TRAIN["hidden_dim"])])
+    model = train_am.build_model(args, 20, HYBRID_CLASSES, dev)
+    trainer = Trainer(model, train_am.make_loss(args), TrainConfig())
+    state = trainer.init_state()
+    batch = {"feats": torch.randn(B, T, 20, generator=gen).to(dev), "lengths": lens,
+             "labels": torch.randint(0, HYBRID_CLASSES, (B, T), generator=gen).to(dev)}
+    k3_reset()
+    loss, _, _ = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    step_launches = k3_read("train_step", 2 * HYBRID_TRAIN["num_layers"])
+    assert torch.isfinite(loss)
+    t_step, _ = wall_s(lambda: trainer.train_step(state, batch))
+    log(f"[k3] one train_am --arch rnn step ({HYBRID_TRAIN['num_layers']} x "
+        f"{HYBRID_TRAIN['hidden_dim']}, B {B}, T {T}): {step_launches} K3 launches, "
+        f"{t_step * 1e3:.1f} ms a step")
+    log(f"[k3] phase 6 (b) took {time.perf_counter() - t_phase:.1f} s")
+    return dict(shape=[B, T, H], max_rel_err=worst, ms=fwd_ms, backward_ms=bwd_ms,
+                bound_ms=f_bound, backward_bound_ms=b_bound, bound_by=f_by,
+                layer_ms=layer_ms, plain_ms=plain_ms, library_ms=library_ms)
+
+
 def _rel(a, b):
     return abs(a - b) / max(abs(b), 1e-30)
 
@@ -1282,7 +1469,8 @@ def hybrid_train_phase(xh, lh, rng, dev, tmp):
     """Hybrid training at timit_hybrid (recipes/configs/timit_hybrid.json):
     FDLP (K1) -> global CMVN -> egs with seeded frame labels ->
     train_am.main --arch rnn at full width. Returns K1's launches over the
-    path (featgen through training)."""
+    path (featgen through training); K3's over train_am.main go under
+    K3_LAUNCHES["hybrid_train"], the main path's count."""
     import os
 
     from speech_recognition_tools_tpu_torch.cli import train_am
@@ -1315,9 +1503,16 @@ def hybrid_train_phase(xh, lh, rng, dev, tmp):
               num_targets=HYBRID_CLASSES)
     argv = [egs, store, "--arch", "rnn", "--dev_egs_dir", dev_egs, "--device", str(dev)]
     argv += [a for k, v in H.items() for a in (f"--{k}", str(v))]
+    k3_reset()
     st = train_am.main(argv)
     torch.cuda.synchronize()
     t_path = time.perf_counter() - t_path
+    # K3 on the main path: each epoch's train steps forward and backward,
+    # its dev batches forward, once a layer each
+    train_batches, dev_batches = (sum(1 for _ in iter_egs_batches(d, H["batch_size"]))
+                                  for d in (egs, dev_egs))
+    k3_main = k3_read("hybrid_train",
+                      H["epochs"] * H["num_layers"] * (2 * train_batches + dev_batches))
     launches = lpc_cepstra.launches
     assert launches > 0, "the hybrid training path did not launch K1"
     assert len(st.history) == H["epochs"], st.history
@@ -1397,7 +1592,8 @@ def hybrid_train_phase(xh, lh, rng, dev, tmp):
     log(f"[hybrid-train] timit_hybrid: train_am.main --arch rnn {H['num_layers']} x "
         f"{H['hidden_dim']} GRU, {HYBRID_CLASSES} "
         f"classes, {H['epochs']} epochs x 2 batches of {H['batch_size']} + a dev batch: "
-        f"{t_path:.2f} s for FDLP -> egs -> train_am.main, K1 launches {launches}; "
+        f"{t_path:.2f} s for FDLP -> egs -> train_am.main, K1 launches {launches}, K3 launches "
+        f"{k3_main} ({train_batches} train steps and {dev_batches} dev batch(es) an epoch); "
         f"losses " + ", ".join(f"train {h['train_loss']:.4f} dev {h['dev_loss']:.4f}"
                                for h in st.history))
     log(f"[hybrid-train] card vs cpu, one step on 4 utterances: loss {l_g:.6f} / {l_c:.6f} "
@@ -5594,11 +5790,16 @@ def _p18_train_e2e(rec, rank, world, argv):
 
 
 def _p18_train_am(rec, rank, world, argv):
+    """train_am.main with a parallel mode: first-step loss and gradient
+    norm, the exchange share, K3's launches on this rank."""
     from speech_recognition_tools_tpu_torch.cli import train_am
+    from speech_recognition_tools_tpu_torch.ops.gru_scan import gru_scan
 
+    k3_reset()
     s, share, _, st = rec.run(train_am.main, argv)
     return dict(s=s, share=share, loss=rec.losses[0], gnorm=rec.gnorms[0],
-                steps=len(rec.gnorms), train_loss=st.history[0]["train_loss"])
+                steps=len(rec.gnorms), train_loss=st.history[0]["train_loss"],
+                k3=gru_scan.launches)
 
 
 def _p18_ring(rec, rank, world, model_dir, feats, lengths, egs, out):
@@ -5869,13 +6070,16 @@ def parallel_phase(x, lens, fdlp_cfg, rng, dev, tmp, beside=None):
     # (e) train_am data- and expert-parallel against one process
     for tag, ref in (("am_dp", refs["rnn"]), ("am_ep", refs["curl"])):
         res = w2[0][tag]
+        for rank, r in enumerate(w2):
+            K3_LAUNCHES[f"{tag}_rank{rank}"] = r[tag]["k3"]
         assert _rel(res["loss"], ref["loss"]) <= PAR_LOSS_REL, (tag, res, ref)
         assert _rel(res["gnorm"], ref["gnorm"]) <= PAR_GNORM_REL, (tag, res, ref)
         log(f"[parallel] (e) train_am {'--data_parallel (3 x 512 GRU)' if tag == 'am_dp' else '--arch curl --expert_parallel 2'}: "
             f"first-step loss {res['loss']:.6f} (rel {_rel(res['loss'], ref['loss']):.3e}, "
             f"limit {PAR_LOSS_REL}), grad norm rel {_rel(res['gnorm'], ref['gnorm']):.3e}; "
             f"run {res['s']:.1f} s against one process {ref['s']:.1f} s, "
-            f"{100 * res['share']:.1f}% in exchanges {note}")
+            f"{100 * res['share']:.1f}% in exchanges, K3 launches by rank "
+            f"{[r[tag]['k3'] for r in w2]} {note}")
     log(f"[parallel] one-process references {t_ref:.1f} s; phase 18 took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return {"dp_featgen": sum(dp_launches), "seq_featgen": seq_launches,
@@ -5952,6 +6156,11 @@ def main():
         log(f"[build] K2 built in {time.perf_counter() - t_k2:.2f} s: "
             + "; ".join(ln.strip() for ln in kernels.build_log("ctc_prefix").splitlines()
                         if "Used" in ln or "spill" in ln))
+        t_k3 = time.perf_counter()
+        kernels.build("gru_scan")
+        log(f"[build] K3 built in {time.perf_counter() - t_k3:.2f} s: "
+            + "; ".join(ln.strip() for ln in kernels.build_log("gru_scan").splitlines()
+                        if "Compiling" in ln or "Used" in ln or "spill" in ln))
         log(f"[build] native decoder built ({os.path.basename(native_build.result())}) in "
             f"{time.perf_counter() - t0:.2f} s")
 
@@ -6155,6 +6364,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         t6 = time.perf_counter()
         hybrid_train_launches = hybrid_train_phase(xh, lh, rng, dev, tmp)
+        k3 = k3_phase(gen, dev)
         phase_done(6, t6, t_run)
         t7 = time.perf_counter()
         e2e_train_launches = e2e_train_phase(x, lens, e2e, rng, dev, tmp)
@@ -6165,13 +6375,19 @@ def main():
         phase_done(8, t8, t_run)
         # ---- 9. the LM stage, the hybrid decode end, ctc_weight 1.0 ----
         t9 = time.perf_counter()
+        k3_reset()
         lm_train_phase(e2e_model, rng, dev, tmp)
+        k3_read("rnnlm_lm_loss")
+        k3_reset()
         decode_launches = hybrid_decode_phase(rng, dev, tmp)
+        k3_read("hybrid_posteriors")
         ctc_only_check(e2e_model)
         phase_done(9, t9, t_run)
         # ---- 10. the MFCC hybrid front-end and the conformer ----
         t10 = time.perf_counter()
+        k3_reset()
         mfcc_phase(x, lens, rng, dev, tmp)
+        k3_read("mfcc_train")
         conf_launches, conf_stream_launches = conformer_phase(x, lens, e2e, fa, na, rng, dev,
                                                               tmp)
         phase_done(10, t10, t_run)
@@ -6190,21 +6406,31 @@ def main():
         phase_done(12, t12, t_run)
         # ---- 13. the hybrid recipes' PM stage, the recurrent half of the zoo ----
         t13 = time.perf_counter()
+        k3_reset()
         pm_launches = pm_stage_phase(rng, dev, tmp)
+        k3_read("pm_stage")
+        k3_reset()
         zoo_phase(dev, tmp)
+        k3_read("zoo")
         phase_done(13, t13, t_run)
         # ---- 14. the conv zoo, adaptation, lifelong decoding, the CL decode ----
         t14 = time.perf_counter()
         conv_zoo_phase(dev, tmp, args.seed)
+        k3_reset()
         adapt_launches = adapt_phase(rng, dev, tmp)
+        k3_read("adapt")
+        k3_reset()
         lifelong_phase(dev, tmp)
+        k3_read("lifelong")
         cl_phase(e2e_model, dev, tmp)
         phase_done(14, t14, t_run)
         # ---- 15. int8 serving, the look-ahead word LM, forced alignment ----
         t15 = time.perf_counter()
         int8_launches = int8_phase(x, lens, e2e, fa, na, rng, dev, tmp)
         wordlm_launches = wordlm_phase(x, lens, e2e, rng, dev, tmp)
+        k3_reset()
         align_launches = align_phase(xh, lh, rng, dev, tmp)
+        k3_read("align")
         phase_done(15, t15, t_run)
         # ---- 16. stage-0 enhancement, SE scores, augmented featgen ----
         t16 = time.perf_counter()
@@ -6222,6 +6448,11 @@ def main():
         phase_done(18, t17, t_run)  # phase 17 included
 
     # ---- 19. every kernel of the port ----
+    # every GRU path on the card launched K3 (the main path and one train
+    # step their exact counts, where they ran)
+    log(f"[k3] launches by path: {K3_LAUNCHES}")
+    silent = sorted(path for path, n in K3_LAUNCHES.items() if n <= 0)
+    assert not silent, f"these GRU paths did not launch K3: {silent}"
     log(json.dumps({"kernels": [{
         "name": "lpc_cepstra",
         "route": "cuda",
@@ -6268,6 +6499,26 @@ def main():
         # F.ctc_loss sums over every alignment of one whole sequence: not
         # the prefix scores of every extension of a beam
         "library_ms": None,
+    }, {
+        "name": "gru_scan",
+        "route": "cuda",
+        "source": "speech_recognition_tools_tpu_torch/csrc/gru_scan.cu",
+        # no Pallas kernel: XLA compiled the JAX package's lax.scan
+        "replaces": "speech_recognition_tools_tpu/models/recurrent.py (lax.scan)",
+        "launches": K3_LAUNCHES["hybrid_train"],
+        "launches_by_path": K3_LAUNCHES,
+        "shape": k3["shape"],
+        "max_rel_err": k3["max_rel_err"],
+        "ms": k3["ms"],
+        "backward_ms": k3["backward_ms"],
+        "layer_ms": k3["layer_ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "backward_bound_ms": k3["backward_bound_ms"],
+        "bound_by": k3["bound_by"],
+        # torch.nn.GRU (cuDNN) forward + backward at the same shape, a
+        # yardstick the port never calls
+        "library_ms": k3["library_ms"],
     }]}))
 
     log(f"[run] {time.perf_counter() - t_run:.1f} s from start to the contract line")

@@ -11,11 +11,15 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
   instantiations (`K1_LANE_LIST` in the source) is compiled by its own
   `nvcc -c -DK1_LANES=L` process, beside one more for the C entry point.
 - K2, "ctc_prefix" (`csrc/ctc_prefix.cu`): one unit.
+- K3, "gru_scan" (`csrc/gru_scan.cu`): one unit per instantiation of its
+  K3_CONFIG_LIST (`-DK3_UPT -DK3_BG -DK3_SMEM`), beside one for the C
+  entry points (`gru_scan_f32` the forward, `gru_scan_bwd_f32`).
 
-One library a kernel, so that an edit of either source rebuilds that
-kernel alone: featgen and serving, which load K1 only, keep K1's library
-(its path is a function of K1's source, units and flags alone), and the
-beam search's first step pays K2's one-unit build alone.
+One library a kernel, so that an edit of one source rebuilds that kernel
+alone: featgen and serving, which load K1 only, keep K1's library (its
+path is a function of K1's source, units and flags alone), the beam
+search's first step pays K2's one-unit build alone, and the first GRU
+layer on the card K3's.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a machine without `nvcc`. `instantiations()` reads the source
@@ -62,6 +66,19 @@ def instantiations() -> tuple[tuple[int, ...], tuple[int, ...]]:
     return listed("K1_LANE_LIST"), listed("K1_CHUNK_LIST")
 
 
+GRU_SOURCE = os.path.join(_PKG_DIR, "csrc", "gru_scan.cu")
+
+
+@functools.lru_cache(maxsize=1)
+def gru_configs() -> tuple[tuple[int, int, bool], ...]:
+    """K3's instantiations (units a lane, batch rows a cluster, weight
+    slice in shared memory), as the source's K3_CONFIG_LIST names them."""
+    with open(GRU_SOURCE) as f:
+        m = re.search(r"#define K3_CONFIG_LIST\(X\)((?: X\(\d+, \d+, [01]\))+)", f.read())
+    return tuple((int(u), int(b), s == "1")
+                 for u, b, s in re.findall(r"X\((\d+), (\d+), ([01])\)", m.group(1)))
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
@@ -79,11 +96,19 @@ def _units() -> list[tuple[str, tuple[str, ...]]]:
     return [("entry", ())] + [(f"lanes{n}", (f"-DK1_LANES={n}",)) for n in lanes]
 
 
+def _gru_units() -> list[tuple[str, tuple[str, ...]]]:
+    """K3's entry points, then one unit per instantiation."""
+    return [("entry", ())] + [(f"u{u}b{b}s{int(s)}", (f"-DK3_UPT={u}", f"-DK3_BG={b}",
+                                                      f"-DK3_SMEM={int(s)}"))
+                              for u, b, s in gru_configs()]
+
+
 @dataclasses.dataclass(frozen=True)
 class Kernel:
     source: str
     units: Callable[[], list]  # (object name, extra nvcc flags) of each nvcc -c process
     argtypes: tuple  # of the `<name>_f32` entry point, which returns a cudaError_t
+    more: tuple = ()  # (name, argtypes) of further entry points, each returning an int
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -91,6 +116,8 @@ KERNELS = {
     "lpc_cepstra": Kernel(SOURCE, _units, (_P, _P, *[_I] * 8, _P)),
     "ctc_prefix": Kernel(os.path.join(_PKG_DIR, "csrc", "ctc_prefix.cu"),
                          lambda: [("ctc_prefix", ())], (*[_P] * 5, _L, _L, *[_I] * 5, *[_P] * 4)),
+    "gru_scan": Kernel(GRU_SOURCE, _gru_units, (*[_P] * 4, *[_I] * 5, *[_P] * 3),
+                       (("gru_scan_bwd_f32", (*[_P] * 5, *[_I] * 5, *[_P] * 3)),)),
 }
 
 
@@ -204,6 +231,10 @@ def _open(name: str, path: str) -> ctypes.CDLL:
     entry = getattr(lib, f"{name}_f32")
     entry.argtypes = list(KERNELS[name].argtypes)
     entry.restype = ctypes.c_int
+    for more, argtypes in KERNELS[name].more:
+        fn = getattr(lib, more)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p

@@ -21,10 +21,12 @@ The gate algebra is flax.linen.GRUCell's:
 Weights are stored gate-stacked (r|z|n) as weight_ih (3H, D), bias_ih
 (3H,), weight_hh (3H, H) and bias_hn (H,); io/jax_params.py maps the JAX
 package's parameter tree onto them. The input projection runs as one matmul
-over all frames, then a loop over time steps does the recurrent part (plain
-PyTorch; cuDNN's GRU is not used). The loop and `step` (one token at a
-time, for the RNNLM's beam-search fusion) share `MaskedGRULayer.cell`, so
-one gate algebra serves both.
+over all frames, then ops/gru_scan.py::gru_scan does the recurrent part: on
+the card kernel K3 (csrc/gru_scan.cu), the whole time loop in one launch
+forward and one backward; on the CPU its plain version, a loop over time
+steps. cuDNN's GRU is not used. The plain loop, `step` (one token at a
+time, for the RNNLM's beam-search fusion) and `MaskedGRULayer.cell` share
+ops/gru_scan.py::gru_cell, so one gate algebra serves all three.
 
 Parameters are drawn as flax draws them (models/flax_init.py): the input
 kernels lecun_normal, each recurrent gate kernel orthogonal, the biases
@@ -44,11 +46,7 @@ from torch import nn
 
 from speech_recognition_tools_tpu_torch.device import configure_cuda, resolve_device
 from speech_recognition_tools_tpu_torch.models import flax_init
-
-
-def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
-    """(B,) -> (B, T) boolean validity mask."""
-    return torch.arange(max_len, device=lengths.device)[None, :] < lengths[:, None]
+from speech_recognition_tools_tpu_torch.ops.gru_scan import gru_cell, gru_scan, length_mask
 
 
 class MaskedGRULayer(nn.Module):
@@ -79,32 +77,17 @@ class MaskedGRULayer(nn.Module):
     def cell(self, xi: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """One step of the gate algebra: the input projection xi = W_i x +
         b_i (N, 3H) and the carry h (N, H) -> the new carry (N, H)."""
-        H = self.hidden_size
-        hh = h @ self.weight_hh.T
-        x_r, x_z, x_n = xi.split(H, dim=-1)
-        h_r, h_z, h_n = hh.split(H, dim=-1)
-        r = torch.sigmoid(x_r + h_r)
-        z = torch.sigmoid(x_z + h_z)
-        n = torch.tanh(x_n + r * (h_n + self.bias_hn))
-        return (1.0 - z) * n + z * h
+        return gru_cell(xi, h, self.weight_hh, self.bias_hn)
 
     def step(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """One time step for a batch of inputs x (N, D) and carries h (N, H)."""
         return self.cell(torch.nn.functional.linear(x, self.weight_ih, self.bias_ih), h)
 
     def forward(self, inputs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        B, T, _ = inputs.shape
-        mask = length_mask(lengths, T)
+        """(B, T, D), (B,) -> (B, T, H): one input projection over all
+        frames, then the recurrence (K3 on the card)."""
         xi = torch.nn.functional.linear(inputs, self.weight_ih, self.bias_ih)
-        h = inputs.new_zeros((B, self.hidden_size))
-        outs = []
-        # unbind, not xi[:, t]: autograd then stacks the per-step gradients
-        # once instead of filling and adding a full-size xi gradient per step
-        for xi_t, keep in zip(xi.unbind(1), mask[..., None].unbind(1)):
-            h_new = self.cell(xi_t, h)
-            h = torch.where(keep, h_new, h)
-            outs.append(torch.where(keep, h_new, torch.zeros_like(h_new)))
-        return torch.stack(outs, dim=1)
+        return gru_scan(xi, self.weight_hh, self.bias_hn, lengths)
 
 
 class MaskedLSTMLayer(nn.Module):
