@@ -5,23 +5,30 @@
 
 Run from the root of a checkout. It builds the port's CUDA kernels from
 csrc/ (nvcc) and the native decoder from native/ (g++), and drives the
-port only (no JAX). Every phase asserts; any failure
-exits non-zero. Phases:
+port only (no JAX). Every phase asserts; any failure exits non-zero.
+It holds what neither the port's card tests (pytest tests that take the
+`card` fixture of tests/torch_card.py, beside each module's CPU tests)
+nor the benchmark's cells (benchmark/) hold: the paths no cell runs,
+driven end to end, and the kernels alone. A new kernel or path adds card
+tests, not a phase here. Phases:
 
   1. the card's name and power limit (nvidia-smi) and the kernel builds,
-     with each K1 instantiation's registers and spills (none allowed in
-     those the configs' launch plans pick), K2's and K3's;
+     with each compiled entry function's registers and spills
+     (kernels.register_report; none allowed in the K1 instantiations that
+     the configs' launch plans pick);
   2. K1 (csrc/lpc_cepstra.cu) against its plain PyTorch version on AR
      lags (rtol = atol = 1e-4) at the three config shapes, ragged and odd
      row counts, unity gain, lim = 1, lim = 2, lim > order + 1, and orders
      at and just past the configs' plans' chunk boundaries; every lane
-     count and block size at the three timed shapes (checked and timed),
-     then the plan's choice with the plain time, the bound and its share
-     (kernel ms: device time by CUDA-graph replay; call ms: eager calls
-     back to back, host overhead included);
-     and on the real FDLP lags of a near-periodic input (finite;
-     rtol = atol = 5e-3 and each coefficient's error within 0.15 of its
-     mean magnitude at lim 100, 0.2 at lim 450);
+     count and block size at the three swept shapes (checked); on the real
+     FDLP lags of a near-periodic input (finite; rtol = atol = 5e-3 and
+     each coefficient's error within 0.15 of its mean magnitude at lim
+     100, 0.2 at lim 450); then each kernel alone at its cell's shape
+     (kernel_table: K1, K2, K3, each against its plain version in its own
+     measure, K1 1e-4 as above, K2 1e-5 element by element, K3 2e-5 over
+     each tensor's largest entry; device ms by CUDA-graph replay, the
+     bound and its share, the port's call, plain and library ms), the
+     kernels line's numbers;
   3. featgen at the wsj_fdlp_e2e front-end (80 bands, order 150, 1.5 s)
      on 32 utterances of 6-10 s: backend 'auto' (K1) against 'scan'
      (plain), rtol 1e-3 / atol 2e-3 on valid frames;
@@ -33,8 +40,8 @@ exits non-zero. Phases:
      plain LPC backend (atol 1e-2) and the AM against itself on the CPU;
      K1 against its plain version on the main path's own lags (rtol =
      atol = 1e-3 and each coefficient's error within 1e-2 of its mean
-     magnitude); per-batch times and a torch.profiler breakdown of device
-     time;
+     magnitude); per-batch times and torch.profiler breakdowns of device
+     time of the front-end and the AM;
   5. the e2e slice at wsj_fdlp_e2e on phase 3's batch: FDLP (K1) ->
      global CMVN -> TransformerASR (vocab 52, adim 256, 4 heads, 12/6
      layers, FFN 2048) -> beam 10 joint CTC/attention search (ctc_weight
@@ -45,31 +52,17 @@ exits non-zero. Phases:
      (E2E_CTC_TOL), the encoder against the CPU (atol 1e-4, two
      utterances), the search against the CPU from the same memory (best
      scores within 1e-4 relative, max_len E2E_CPU_MAX_LEN; token-identical
-     hypotheses counted); per-batch times and real-time factor at max_len
-     100; ms per beam step split into decoder, CTC prefix, LM, top-k and
-     update (E2E_PARTS_MAX_LEN steps), and
-     profiles of the encoder and of ten beam steps; K2's launches counted
-     over the recognize_batch call and, one a step, over the timed search;
-     (b) K2 (csrc/ctc_prefix.cu) against its plain version at the shapes
-     the search feeds it (k2_phase: phase 5's batch at beam 10, its first
-     step, one utterance, the decode cell's longest batch; K2_REL), kernel
-     ms by CUDA-graph replay beside the plain ms and the bytes bound;
+     hypotheses counted); K2's launches counted over the recognize_batch
+     call and, one a step, over the search run part by part;
   6. hybrid training at timit_hybrid on phase 4's 32 utterances: FDLP (K1)
      -> global CMVN -> build_egs with seeded frame labels over 3,376
      classes -> train_am.main --arch rnn (3 x 512 GRU, Adam lr 1e-3, clip
      1.0, lrr 0.5) for 2 epochs of 2 batches plus a dev batch; finite
      losses, a checkpoint that loads back, K1's launches counted over the
      path, K3's over train_am.main (2 x layers a train step and layers a
-     dev batch, the main path's count); one step card against CPU on the same weights and batch (loss
-     1e-5 relative, gradient norm 1e-4 relative, update 1e-3 x lr); ms a
-     step split into forward, backward and optimizer, peak memory and a
-     profile; (b) K3 (csrc/gru_scan.cu) against its plain loop (k3_phase:
-     a layer's outputs and gradients at the timit_hybrid.train cell's
-     longest batch and at the RNNLM's lm_loss shape; K3_REL), its forward
-     and backward kernel ms by CUDA-graph replay beside the operations
-     bound, a layer's forward and backward through autograd, the plain
-     loop's and torch.nn.GRU's (cuDNN, a yardstick only) at the cell's
-     batch, and its launches over one train_am --arch rnn step (6);
+     dev batch, the main path's count); one step card against CPU on the
+     same weights and batch (loss 1e-5 relative, gradient norm 1e-4
+     relative, update 1e-3 x lr);
   7. e2e training at wsj_fdlp_e2e on phase 3's 32 utterances: FDLP (K1) ->
      global CMVN -> build_egs (each utterance twice, with two seeded
      transcripts over the 52-symbol vocabulary that CTC can align, some
@@ -295,7 +288,9 @@ exits non-zero. Phases:
      compute_fdlp_spectrogram --data_parallel on 2 ranks over phase 3's
      32 utterances (as int16 wavs): K1 launched on each rank's rows,
      counted, and held to its plain version on them (phase 2's limits);
-     rank 0's ark against the one-process CLI's (rtol 1e-3, atol 2e-3);
+     rank 0's ark against the one-process CLI's over the same batches,
+     each rank's rows as a batch of its own (PAR_FEAT_BUCKET; rtol 1e-3,
+     atol 2e-3);
      (b) the frame- and input-sharded FDLP over a 'time' axis of 2 on 4
      full-length 60 s utterances against fdlp_spectrogram_batch on the
      card (same limits), K1 counted per rank and held to its plain
@@ -318,16 +313,17 @@ exits non-zero. Phases:
      main path's count: K1's on the hybrid slice, K2's on the e2e one,
      K3's over phase 6's train_am.main; `launches_by_path` each path's:
      K2's over the e2e, incremental, bf16, conformer and word-LM searches
-     and recog_e2e's --jit_decode and --streaming final beam; K3's over
-     the hybrid training, one train step, the RNNLM stage, the hybrid
+     and recog_e2e's --jit_decode and --streaming final beam, every one at
+     least 1; K3's over the hybrid training, the RNNLM stage, the hybrid
      posteriors, the MFCC training, the PM stage, the zoo, adaptation,
-     lifelong decoding, alignment and each rank of train_am
-     --data_parallel and --expert_parallel, every one at least 1);
+     lifelong decoding, alignment and each rank of train_am --data_parallel
+     and --expert_parallel; the other numbers phase 2's kernel_table's);
   20. the run's time, the card's name and power limit again, then the last
      line: {"ok": true, "device": {...}}.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import socket
@@ -341,8 +337,16 @@ import time
 import numpy as np
 import torch
 
-H100_F32_FLOPS = 67e12  # non-tensor-core float32, SXM, at 700 W
-H100_BYTES_PER_S = 3.35e12  # HBM3
+from benchmark.common import (
+    H100_BYTES_PER_S,
+    H100_F32_FLOPS,
+    k1_bound_s,
+    k1_work,
+    random_transcript,
+    speechlike_signals,
+)
+from speech_recognition_tools_tpu_torch.decode.ctc_prefix import ctc_prefix_scores
+from speech_recognition_tools_tpu_torch.ops.gru_scan import gru_scan
 
 # K1 against its plain version on real FDLP lags: allclose(rtol=atol=TOL)
 # and, per cepstral coefficient n, max|err_n| <= REL * mean|c_n|
@@ -361,28 +365,9 @@ E2E_AM = dict(vocab_size=52, adim=256, aheads=4, elayers=12, eunits=2048, dlayer
 E2E_LM_HIDDEN = 1000
 E2E_BEAM = dict(beam_size=10, ctc_weight=0.3, penalty=0.0, lm_weight=1.0)
 E2E_MAX_LEN = 100
-# cut for time: the card-vs-CPU search on 2 utterances (from 100) and the
-# search timed part by part (from 100); the search at the recog_e2e CLI's
-# max_len 200 is no longer timed (its ms a step were within 4% of max_len
-# 100's in the runs that timed both)
+# cut for time: the card-vs-CPU search on 2 utterances (from 100)
 E2E_CPU_MAX_LEN = 50
-E2E_PARTS_MAX_LEN = 25
 E2E_CTC_TOL = 1.2e-3
-# K2 (csrc/ctc_prefix.cu) against its plain version: finite entries within
-# K2_REL relative, every NEG_INF entry exact and in place; timed at phase
-# 5's batch and at (B, T) of the wsj_fdlp_e2e.decode cell's longest batch
-K2_REL = 1e-5
-K2_CELL_BT = (8, 303)
-# K3 (csrc/gru_scan.cu) against the plain loop: a layer's outputs and the
-# gradients of its four parameters, each the worst entry's gap over the
-# largest entry, within K3_REL; timed at the timit_hybrid.train cell's
-# longest batch (B, T, H): 32 utterances of 5.5-6 s (K3_CELL_LENS frames)
-# in 32-frame buckets; held also at the RNNLM's lm_loss shape K3_LM (B, T,
-# D, H), the weight slice read from L2
-K3_REL = 2e-5
-K3_CELL = (32, 608, 512)
-K3_CELL_LENS = (551, 600)
-K3_LM = (8, 50, 256, 1000)
 
 # training (phases 6-7): timit_hybrid's am section and wsj_fdlp_e2e's
 # (:17-34), at full width; two epochs of two batches each
@@ -663,9 +648,9 @@ REVERB_DEMO_ARGS = ["--num_utts", "5", "--e2e_epochs", "1"]
 # (order, coeff_num) of the front-ends in recipes/configs: wsj/chime4/
 # conformer e2e, timit_hybrid, reverb
 CONFIG_SHAPES = [(150, 100), (50, 50), (150, 450)]
-# K1's timed shapes: featgen's and the e2e front-end's rows, the hybrid
+# K1's swept shapes: featgen's and the e2e front-end's rows, the hybrid
 # main path's, and the reverb front-end's at featgen's row count
-TIMED_SHAPES = [(23040, 150, 100), (10240, 50, 50), (23040, 150, 450)]
+SWEPT_SHAPES = [(23040, 150, 100), (10240, 50, 50), (23040, 150, 450)]
 
 
 def log(msg):
@@ -804,69 +789,38 @@ def device_breakdown(tag, fn, top=8):
     return wall_us, busy, sum(r[1] for r in rows)
 
 
-def k1_work(P, order, lim):
-    """(flops, bytes) the K1 function needs, per row: normalisation p,
-    Levinson 2p(p-1) (a dot and an update per step), gain 2p; cepstrum c_n
-    for 2 <= n < lim as one FMA (2 flops) per term b[n-m] d_m with
-    d_m = m c_m kept, over the terms whose b[n-m] is nonzero (n-m <= p),
-    plus 3 per n (scale by 1/n and add b[n], form d_n). Bytes: each input
-    lag read once (order+2 per row), each output written once."""
-    flops = order + 2 * order * (order - 1) + 2 * order
-    flops += sum(2 * min(n - 1, order) + 3 for n in range(2, lim))
-    return P * flops, P * (order + 2 + lim) * 4
-
-
-def k1_bound_ms(P, order, lim):
-    flops, nbytes = k1_work(P, order, lim)
+def bound_ms(flops, nbytes):
+    """The least time in ms the H100 could take for `flops` float32
+    operations and `nbytes` bytes of DRAM traffic, and which bounds it."""
     t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-# K2's launches by search path, for phase 19's kernels line: each path sets
-# the counter to 0 (k2_reset) before it runs and reads it right after
-K2_LAUNCHES = {}
+class Launches:
+    """One kernel's launches by path, for phase 19's kernels line: `reset()`
+    sets the kernel function's `.launches` counter to 0 before a path runs,
+    `read(path)` right after it keeps the count under `by_path[path]`. A
+    path launches the kernel at least `least` times; where `want` says how
+    many, exactly that many."""
+
+    def __init__(self, fn, least):
+        self.fn, self.least, self.by_path = fn, least, {}
+
+    def reset(self):
+        self.fn.launches = 0
+
+    def read(self, path, want=None):
+        n = self.fn.launches
+        assert n >= self.least, f"the {path} path launched {self.fn.__name__} {n} times"
+        assert want is None or n == want, (path, n, want)
+        self.by_path[path] = n
+        return n
 
 
-def k2_reset():
-    from speech_recognition_tools_tpu_torch.decode.ctc_prefix import ctc_prefix_scores
-
-    ctc_prefix_scores.launches = 0
-
-
-def k2_read(path, steps=None):
-    """K2's launches since k2_reset(), kept under K2_LAUNCHES[path]: the
-    path has to have launched K2, once a search step where `steps` says
-    how many steps its searches ran."""
-    from speech_recognition_tools_tpu_torch.decode.ctc_prefix import ctc_prefix_scores
-
-    n = ctc_prefix_scores.launches
-    assert n > 0, f"the {path} path did not launch K2"
-    assert steps is None or n == steps, (path, n, steps)
-    K2_LAUNCHES[path] = n
-    return n
-
-
-# K3's launches by GRU path, for phase 19's kernels line: each path sets
-# the counter to 0 (k3_reset) before it runs and reads it right after
-# (k3_read); phase 19 holds every path to at least one launch
-K3_LAUNCHES = {}
-
-
-def k3_reset():
-    from speech_recognition_tools_tpu_torch.ops.gru_scan import gru_scan
-
-    gru_scan.launches = 0
-
-
-def k3_read(path, want=None):
-    """K3's launches since k3_reset(), kept under K3_LAUNCHES[path]; where
-    `want` says how many the path makes, exactly that many."""
-    from speech_recognition_tools_tpu_torch.ops.gru_scan import gru_scan
-
-    n = gru_scan.launches
-    assert want is None or n == want, (path, n, want)
-    K3_LAUNCHES[path] = n
-    return n
+# every search path has to launch K2; that every GRU model runs on K3 is
+# tests/test_torch_gru_kernel.py::test_card_every_gru_model_trains_through_k3's
+K2 = Launches(ctc_prefix_scores, least=1)
+K3 = Launches(gru_scan, least=0)
 
 
 def search_steps(toks):
@@ -875,14 +829,13 @@ def search_steps(toks):
     return int((toks[0, 0] >= 0).sum()) - 1
 
 
-def k2_bound_ms(B, K, V, T):
-    """K2's DRAM bytes at (B, K, V, T) over the card's bandwidth: logp and
-    r_prev read once, r_new (2 T B K V floats), psi and full written once,
-    the int64 inputs read once; its ~25 flops a chain frame take far less
-    at H100_F32_FLOPS."""
+def k2_work(B, K, V, T):
+    """(operations, DRAM bytes) of K2 at (B, K, V, T): ~25 operations a
+    chain and frame; logp and r_prev read once, r_new (2 T B K V floats),
+    psi and full written once, the int64 inputs read once."""
     nbytes = 4 * (B * T * V + B * K * T * 2 + 2 * T * B * K * V + 2 * B * K * V)
     nbytes += 8 * (B + 2 * B * K)
-    return 1e3 * nbytes / H100_BYTES_PER_S, nbytes
+    return 25 * B * K * V * T, nbytes
 
 
 def k3_work(B, T, H, lengths):
@@ -899,9 +852,189 @@ def k3_work(B, T, H, lengths):
     return (flops, fwd), (flops, bwd)
 
 
-def k3_bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+def cepstra_gap(got, want):
+    """K1's measure, phase 2's: the least t for which allclose(rtol=t,
+    atol=t) holds, and the largest gap."""
+    (g,), (w,) = got, want
+    err = (g - w).abs()
+    return (err / (1 + w.abs())).max().item(), err.max().item()
+
+
+def prefix_gap(got, want):
+    """K2's measure, tests/test_torch_ctc_prefix_kernel.py's: element by
+    element, the largest gap relative to the plain version's entry, and the
+    largest gap, over its finite entries; its NEG_INF entries have to be
+    NEG_INF in place, and the rest finite, or both gaps are inf."""
+    from speech_recognition_tools_tpu_torch.decode.ctc_prefix import NEG_INF
+
+    rel = err = 0.0
+    for g, w in zip(got, want):
+        dead = w == NEG_INF
+        live = g[~dead]
+        if not torch.equal(g == NEG_INF, dead) or not (live.isfinite() & (live > -1e29)).all():
+            return float("inf"), float("inf")
+        e = (live - w[~dead]).abs()
+        rel = max(rel, (e / w[~dead].abs().clamp_min(1e-30)).max().item())
+        err = max(err, e.max().item())
+    return rel, err
+
+
+def scale_gap(got, want):
+    """K3's measure: each tensor's largest gap over its largest entry, the
+    worst of them, and the largest gap."""
+    gaps = [(g - w).abs().max() for g, w in zip(got, want)]
+    return (max((d / w.abs().max()).item() for d, w in zip(gaps, want)),
+            max(d.item() for d in gaps))
+
+
+@dataclasses.dataclass
+class KernelCase:
+    """One kernel alone at its cell's shape, for kernel_table. `call` runs
+    the kernel through the port's function and `plain` its plain version,
+    each on the same inputs, returning a list of output tensors; `gap(got,
+    want)` gives their (relative, absolute) gaps in the kernel's measure,
+    the relative one held to `limit`. `launch` is the bare kernel launch,
+    `work` its (operations, DRAM bytes); `backward` and `backward_work`
+    the same for a backward kernel; `library` a library call that computes
+    the same at the same shape, where one does."""
+
+    shape: list
+    call: object
+    plain: object
+    gap: object
+    limit: float
+    launch: object
+    work: tuple
+    library: object = None
+    backward: object = None
+    backward_work: tuple = None
+    graph_reps: int = 20
+
+
+# the kernels alone, each at its cell's shape: K1 at the rows of a batch
+# of wsj_fdlp_e2e.featgen (order 150, 100 cepstra); K2 at the
+# wsj_fdlp_e2e.decode cell's longest batch (B, T) with valid lengths
+# 100-303; K3 at the timit_hybrid.train cell's longest batch (B, T, H): 32
+# utterances of 5.5-6 s (K3_CELL_LENS frames) in 32-frame buckets
+K1_CELL = (23040, 150, 100)
+K2_CELL_BT = (8, 303)
+K3_CELL = (32, 608, 512)
+K3_CELL_LENS = (551, 600)
+
+
+def k1_case(gen, dev):
+    from speech_recognition_tools_tpu_torch.ops.lpc_cepstra import (
+        lpc_cepstra,
+        lpc_cepstra_reference,
+    )
+
+    P, order, lim = K1_CELL
+    r = ar_lags(P, order, gen, dev)
+    launch = lambda: lpc_cepstra(r, order, lim)  # noqa: E731
+    # no single PyTorch call computes Levinson-Durbin + LPC cepstra
+    return KernelCase(shape=list(K1_CELL), call=lambda: [launch()],
+                      plain=lambda: [lpc_cepstra_reference(r, order, lim)], gap=cepstra_gap,
+                      limit=1e-4, launch=launch, work=k1_work(P, order, lim))
+
+
+def k2_case(gen, dev):
+    """K2 on the inputs of its card tests (a beam of 10 prefixes chained
+    through the plain version, one of them impossible) at the cell's
+    shape. F.ctc_loss sums over every alignment of one whole sequence, not
+    the prefix scores of every extension of a beam: no library call."""
+    from speech_recognition_tools_tpu_torch.decode.ctc_prefix import ctc_prefix_scores_reference
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from test_torch_ctc_prefix_kernel import PREFIXES, V, prefix_inputs
+
+    (B, T), K = K2_CELL_BT, len(PREFIXES) + 1
+    assert (K, V) == (E2E_BEAM["beam_size"], E2E_AM["vocab_size"])
+    args = prefix_inputs(B, T, torch.linspace(100, T, B).round().long().tolist(), 2, dev)
+    launch = lambda: ctc_prefix_scores(*args)  # noqa: E731
+    return KernelCase(shape=[B, K, V, T], call=lambda: list(launch()),
+                      plain=lambda: list(ctc_prefix_scores_reference(*args)), gap=prefix_gap,
+                      limit=1e-5, launch=launch, work=k2_work(B, K, V, T))
+
+
+def k3_case(gen, dev):
+    """K3 in a later layer (D = H) at the cell's shape: `call` a layer's
+    forward and backward through autograd (dW_hh's product included), its
+    output and its four gradients; the forward launch storing the gates
+    for the backward, and the backward launch; torch.nn.GRU (cuDNN)
+    forward and backward over the packed batch, a yardstick the port
+    never calls."""
+    from speech_recognition_tools_tpu_torch.models.recurrent import MaskedGRULayer
+    from speech_recognition_tools_tpu_torch.ops import gru_scan as k3
+
+    B, T, H = K3_CELL
+    lengths = torch.linspace(*K3_CELL_LENS, B).round().long().tolist()
+    lens = torch.as_tensor(lengths, device=dev)
+    layer = MaskedGRULayer(H, H, device=dev)
+    layer.reset_parameters(gen)
+    x = torch.randn(B, T, H, generator=gen).to(dev)
+    dy = torch.randn(B, T, H, generator=gen).to(dev)
+
+    def layer_step(scan):
+        for p in layer.parameters():
+            p.grad = None
+        xi = torch.nn.functional.linear(x, layer.weight_ih, layer.bias_ih)
+        y = scan(xi, layer.weight_hh, layer.bias_hn, lens)
+        (y * dy).sum().backward()
+        return [y.detach()] + [p.grad for p in layer.parameters()]
+
+    cudnn = torch.nn.GRU(H, H, batch_first=True, device=dev)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(x, lens.cpu(), batch_first=True,
+                                                     enforce_sorted=False)
+    g_out = torch.randn(packed.data.shape, generator=gen).to(dev)
+
+    def library():
+        cudnn.zero_grad(set_to_none=True)
+        out, _ = cudnn(packed)
+        torch.autograd.backward(out.data, g_out)
+
+    xi = torch.randn(B, T, 3 * H, generator=gen).to(dev)
+    w, b = layer.weight_hh.detach(), layer.bias_hn.detach()
+    y, gates = k3._kernel_forward(xi, w, b, lens, True)
+    fwd, bwd = k3_work(B, T, H, lengths)
+    return KernelCase(shape=[B, T, H], call=lambda: layer_step(k3.gru_scan),
+                      plain=lambda: layer_step(k3.gru_scan_reference), gap=scale_gap,
+                      limit=2e-5, launch=lambda: k3._kernel_forward(xi, w, b, lens, True),
+                      work=fwd, library=library,
+                      backward=lambda: k3._kernel_backward(dy, y, gates, w, lens),
+                      backward_work=bwd, graph_reps=5)
+
+
+def kernel_table(gen, dev):
+    """Each kernel alone at its cell's shape, one row of PERF.md §6's kernel
+    table: its output against the plain version's in its own measure
+    (max_rel_err, asserted within its limit, and max_abs_err); its bare
+    launches' device ms by CUDA-graph replay beside the H100 bound of
+    their work and its share; the port's call (call_ms; for K3 a layer
+    through autograd), the plain version's and the library's ms by CUDA
+    events. Returns {kernel: that row}, the kernels line's numbers."""
+    table = {}
+    for name, case in (("lpc_cepstra", k1_case), ("ctc_prefix", k2_case),
+                       ("gru_scan", k3_case)):
+        c = case(gen, dev)
+        got = [t.clone() for t in c.call()]
+        rel, err = c.gap(got, c.plain())
+        assert rel <= c.limit, f"{name} at {c.shape}: relative gap {rel} over {c.limit}"
+        row = dict(shape=c.shape, max_rel_err=rel, max_abs_err=err)
+        for prefix, fn, work in (("", c.launch, c.work),
+                                 ("backward_", c.backward, c.backward_work)):
+            if fn is not None:
+                ms = graph_ms(fn, reps=c.graph_reps)
+                bound, by = bound_ms(*work)
+                row.update({f"{prefix}ms": ms, f"{prefix}bound_ms": bound,
+                            f"{prefix}bound_by": by, f"{prefix}share": bound / ms})
+        row["call_ms"] = cuda_ms(c.call, reps=3)
+        row["plain_ms"] = cuda_ms(c.plain, reps=1, repeats=3)
+        row["library_ms"] = None if c.library is None else cuda_ms(c.library, reps=3)
+        log(f"[kernels] {name} at {tuple(c.shape)} (limit {c.limit}): " + ", ".join(
+            f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in row.items() if k != "shape"))
+        table[name] = row
+    return table
 
 
 def cep_agreement(tag, got, ref):
@@ -936,21 +1069,13 @@ def ar_lags(P, order, gen, device):
 
 
 def speechlike_batch(rng, B, lo_s, hi_s, srate=16000):
-    """B utterances with lengths uniform in [lo_s, hi_s] seconds: noise
-    through two resonances, syllable-rate amplitude modulation, int16
-    scale. Returns (signals (B, Nmax) float32, lengths (B,) int32)."""
-    import scipy.signal
-
+    """B of benchmark/common.py's speech-like utterances with lengths
+    uniform in [lo_s, hi_s] seconds, zero-padded. Returns (signals (B, Nmax)
+    float32, lengths (B,) int32)."""
     lens = rng.randint(int(lo_s * srate), int(hi_s * srate) + 1, B).astype(np.int32)
     x = np.zeros((B, int(lens.max())), np.float32)
-    for b, n in enumerate(lens):
-        e = rng.randn(n)
-        for f0 in rng.uniform(300, 3000, 2):
-            a1 = 2 * 0.97 * np.cos(2 * np.pi * f0 / srate)
-            e = scipy.signal.lfilter([1.0], [1.0, -a1, 0.97**2], e)
-        t = np.arange(n) / srate
-        am = 0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(3, 6) * t)
-        x[b, :n] = (e * am / np.abs(e).max() * 12000).astype(np.float32)
+    for b, sig in enumerate(speechlike_signals(rng, lens, srate)):
+        x[b, : len(sig)] = sig
     return x, lens
 
 
@@ -1124,24 +1249,21 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
 
     # the main path, counted, through the entry point a user calls
     lpc_cepstra.launches = 0
-    k2_reset()
-    t0 = time.perf_counter()
+    K2.reset()
     texts = recognize_batch(x, lens, fdlp_cfg, mean, std, asr, vocab, lm=lm, **E2E_BEAM,
                             max_len=E2E_MAX_LEN, device=dev)
     torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
     launches = lpc_cepstra.launches
     assert launches > 0, "the e2e path did not launch K1"
-    k2_e2e = k2_read("e2e")
+    k2_e2e = K2.read("e2e")
 
-    # the same chain part by part: timed, and held to the one call
-    t_front, (feats, nfr) = wall_s(lambda: front(fdlp_cfg))
-    t_enc, (mem, enc_len, ctc) = wall_s(lambda: encode(feats, nfr))
-    # recognize_batch has just run this search: no warm-up call
-    k2_reset()
-    t_beam, (toks, scores) = wall_s(lambda: search(mem, enc_len, ctc), repeats=1, warmup=False)
+    # the same chain part by part, held to the one call
+    feats, nfr = front(fdlp_cfg)
+    mem, enc_len, ctc = encode(feats, nfr)
+    K2.reset()
+    toks, scores = search(mem, enc_len, ctc)
     steps = search_steps(toks)
-    k2_read("e2e_search", steps)
+    K2.read("e2e_search", steps)
     hyps = [tokens_to_list(toks[b], scores[b], eos) for b in range(B)]
     assert texts == [decode_tokens(h, vocab) for h in hyps], "recognize_batch != its parts"
     assert all(isinstance(t, str) for t in texts) and len(texts) == B
@@ -1180,27 +1302,11 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
                for b in range(2))
     assert beam_rel <= 1e-4, (best_g, best_c)
 
-    # per-step parts (the search's spans, profiled) over E2E_PARTS_MAX_LEN
-    # steps, and profiles
-    (toks_p, _), parts = span_seconds(
-        lambda: search(mem, enc_len, ctc, max_len=E2E_PARTS_MAX_LEN))
-    steps_p = int((toks_p[0, 0] >= 0).sum()) - 1
-    device_breakdown("e2e encoder batch", lambda: encode(feats, nfr))
-    device_breakdown("e2e beam search, 10 steps", lambda: search(mem, enc_len, ctc, max_len=10))
-    total = t_front + t_enc + t_beam
     log(f"[e2e] wsj_fdlp_e2e {B} x {lens.min() / 16000:.1f}-{lens.max() / 16000:.1f} s "
         f"({audio_s:.1f} s audio), {int(enc_len.max())} encoder frames max, vocab {V}, "
         f"{cfg.elayers}/{cfg.dlayers} layers, beam {E2E_BEAM['beam_size']}, RNNLM 1 x "
-        f"{E2E_LM_HIDDEN}: K1 launches {launches}, K2 launches {k2_e2e}; first recognize_batch "
-        f"call {t_first:.2f} s")
-    log(f"[e2e] per batch at max_len {E2E_MAX_LEN}: front-end {t_front * 1e3:.2f} ms, encoder "
-        f"{t_enc * 1e3:.2f} ms, beam search {t_beam * 1e3:.1f} ms; total {total * 1e3:.1f} ms = "
-        f"{audio_s / total:.1f}x real time")
-    log(f"[e2e] beam steps run {steps} of max_len {E2E_MAX_LEN}: "
-        f"{t_beam / steps * 1e3:.2f} ms/step; K2 launches {steps}, one a step")
-    log(f"[e2e] per step over {steps_p} steps, host time of each part (profiled): "
-        + ", ".join(f"{k} {v / steps_p * 1e3:.2f} ms" for k, (v, _) in parts.items()
-                    if k.startswith("search.")))
+        f"{E2E_LM_HIDDEN}: K1 launches {launches}, K2 launches {k2_e2e}; {steps} beam steps "
+        f"of max_len {E2E_MAX_LEN}, K2 once a step")
     log(f"[e2e] max|CTC logp(K1) - CTC logp(plain)| {ctc_err:.3e} (limit {E2E_CTC_TOL}); "
         f"encoder cuda vs cpu max|err| {enc_err:.3e} (atol 1e-4); beam cuda vs cpu at max_len "
         f"{E2E_CPU_MAX_LEN} best score rel err {beam_rel:.3e} (limit 1e-4), token-identical "
@@ -1208,235 +1314,6 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
     log(f"[e2e] sample hypotheses: {texts[0][:60]!r} / {texts[1][:60]!r}")
     return launches, dict(asr=asr, lm=lm, mem=mem[:4], enc_len=enc_len[:4], ctc=ctc[:4],
                           vocab=vocab, mem_all=mem, enc_len_all=enc_len, ctc_all=ctc)
-
-
-def k2_phase(e2e, gen, dev):
-    """Phase 5 (b): K2 (csrc/ctc_prefix.cu) through ctc_prefix_scores
-    against its plain version, ctc_prefix_scores_reference, at the shapes
-    the e2e search feeds it: phase 5's CTC log-probs over its 32 utterances
-    with K = beam 10 prefixes (empty, ordinary tokens, a repeated token,
-    blank and eos last, one impossible) whose forward variables are chained
-    through the plain version; the search's first step (the empty prefix's
-    expanded state); one utterance (B = 1, as the streaming final search
-    has it); and seeded log-probs at the decode cell's longest batch
-    K2_CELL_BT with valid lengths spread over 100-303 frames. Finite
-    entries within K2_REL relative, every NEG_INF exact and in place, one
-    launch a call. Kernel ms by CUDA-graph replay, the plain version's by
-    CUDA events, and the bytes bound, at phase 5's batch and at the cell's
-    (the kernels line's). Returns the kernels line's numbers."""
-    from speech_recognition_tools_tpu_torch.decode.ctc_prefix import (
-        NEG_INF,
-        ctc_prefix_scores,
-        ctc_prefix_scores_reference,
-        init_prefix_state,
-    )
-
-    t_phase = time.perf_counter()
-    cfg = e2e["asr"].cfg
-    K, V, blank, eos = E2E_BEAM["beam_size"], cfg.vocab_size, cfg.blank_id, cfg.eos_id
-    prefixes = [[], [5], [5, 5], [7, 3], [blank], [3, blank], [12, 12, 12], [9, 4, 9, 4], [eos]]
-    assert len(prefixes) == K - 1
-
-    def chained(logp, enc_len):
-        B = logp.shape[0]
-        rows = []
-        for seq in prefixes:
-            r = init_prefix_state(logp, enc_len, 1, blank)
-            for j, tok in enumerate(seq):
-                lens = torch.full((B, 1), j, dtype=torch.long, device=dev)
-                last = torch.full((B, 1), seq[j - 1] if j else -1, dtype=torch.long, device=dev)
-                r = ctc_prefix_scores_reference(logp, enc_len, lens, last, r, blank)[2][:, :, tok]
-            rows.append(r)
-        rows.append(torch.full_like(rows[0], NEG_INF))  # an impossible prefix
-        lens = torch.tensor([len(q) for q in prefixes] + [3], device=dev).expand(B, K)
-        last = torch.tensor([q[-1] if q else -1 for q in prefixes] + [8], device=dev).expand(B, K)
-        return (logp, enc_len, lens.contiguous(), last.contiguous(),
-                torch.cat(rows, 1).contiguous(), blank)
-
-    def first_step(logp, enc_len):
-        zeros = torch.zeros((logp.shape[0], K), dtype=torch.long, device=dev)
-        return (logp, enc_len, zeros, torch.full_like(zeros, -1),
-                init_prefix_state(logp, enc_len, K, blank), blank)
-
-    worst = [0.0, 0.0]  # relative, absolute
-
-    def agree(tag, args):
-        before = ctc_prefix_scores.launches
-        got = ctc_prefix_scores(*args)
-        torch.cuda.synchronize()
-        assert ctc_prefix_scores.launches == before + 1, tag
-        want = ctc_prefix_scores_reference(*args)
-        assert got[2].shape == want[2].shape and got[2].stride() == want[2].stride(), tag
-        rel = err = 0.0
-        dead = 0
-        for name, g, w in zip(("psi", "full", "r_new"), got, want):
-            d = w == NEG_INF
-            assert torch.equal(g == NEG_INF, d), f"K2 {tag}: {name}'s NEG_INF entries moved"
-            g, w = g[~d], w[~d]
-            assert torch.isfinite(g).all() and (g > -1e29).all(), f"K2 {tag}: {name}"
-            e = (g - w).abs()
-            rel = max(rel, (e / w.abs().clamp_min(1e-30)).max().item())
-            err = max(err, e.max().item())
-            dead += int(d.sum())
-        assert rel <= K2_REL, (tag, rel)
-        worst[0], worst[1] = max(worst[0], rel), max(worst[1], err)
-        B, T, _ = args[0].shape
-        log(f"[k2] {tag} (B, K, V, T) {(B, K, V, T)}: max rel err {rel:.3e} (limit {K2_REL}), "
-            f"max|err| {err:.3e}; {dead} NEG_INF entries exact")
-        return dead
-
-    def timed(tag, args):
-        B, T, _ = args[0].shape
-        ms = graph_ms(lambda: ctc_prefix_scores(*args))
-        plain = cuda_ms(lambda: ctc_prefix_scores_reference(*args), reps=1, repeats=3)
-        bound, nbytes = k2_bound_ms(B, K, V, T)
-        log(f"[k2] {tag} (B, K, V, T) {(B, K, V, T)}: kernel_ms={ms:.4f} plain_ms={plain:.3f} "
-            f"bound_ms={bound:.5f} ({nbytes / 1e6:.2f} MB, bytes) share_of_bound={bound / ms:.3f}")
-        return ms, plain, bound
-
-    logp = torch.log_softmax(e2e["ctc_all"], -1)
-    enc_len = e2e["enc_len_all"]
-    main = chained(logp, enc_len)
-    assert agree("phase 5's batch", main) > 0
-    agree("phase 5's batch, first step", first_step(logp, enc_len))
-    n1 = int(enc_len[0])
-    one = (logp[:1, :n1].contiguous(), enc_len[:1])
-    assert agree("one utterance", chained(*one)) > 0
-    agree("one utterance, first step", first_step(*one))
-    B, T = K2_CELL_BT
-    cell_logp = torch.log_softmax(torch.randn(B, T, V, generator=gen) * 2, -1).to(dev)
-    cell_len = torch.linspace(100, T, B).round().long().to(dev)
-    cell = chained(cell_logp, cell_len)
-    assert agree("the decode cell's longest batch", cell) > 0
-    timed("phase 5's batch", main)
-    ms, plain, bound = timed("the decode cell's longest batch", cell)
-    log(f"[k2] phase 5 (b) took {time.perf_counter() - t_phase:.1f} s")
-    return dict(shape=[B, K, V, T], max_rel_err=worst[0], max_abs_err=worst[1], ms=ms,
-                plain_ms=plain, bound_ms=bound)
-
-
-def k3_phase(gen, dev):
-    """Phase 6 (b): K3 (csrc/gru_scan.cu) through ops/gru_scan.py::gru_scan
-    against its plain loop, gru_scan_reference, on the card: a layer's
-    outputs and the gradients of weight_ih, bias_ih, weight_hh and bias_hn
-    (autograd through each) at the timit_hybrid.train cell's longest batch
-    K3_CELL (a later layer, D = H) and at the RNNLM's K3_LM, within K3_REL;
-    one launch forward, one backward. Timed at the cell's batch: the
-    forward kernel with and without the gates it stores for the backward,
-    the backward kernel (CUDA-graph replay), a layer's forward and backward
-    through autograd (dW_hh's product included), the plain loop's forward
-    and backward, and torch.nn.GRU (cuDNN) over the packed batch forward
-    and backward as a yardstick only (the port never calls it). Then K3's
-    launches over one train step of train_am's --arch rnn model at
-    timit_hybrid's width. Returns the kernels line's numbers."""
-    from speech_recognition_tools_tpu_torch.cli import train_am
-    from speech_recognition_tools_tpu_torch.models.recurrent import MaskedGRULayer
-    from speech_recognition_tools_tpu_torch.ops import gru_scan as k3
-    from speech_recognition_tools_tpu_torch.train.trainer import TrainConfig, Trainer
-
-    t_phase = time.perf_counter()
-    worst = 0.0
-
-    def agree(tag, B, T, D, H, lengths):
-        layer = MaskedGRULayer(D, H, device=dev)
-        layer.reset_parameters(gen)
-        x = torch.randn(B, T, D, generator=gen).to(dev)
-        dy = torch.randn(B, T, H, generator=gen).to(dev)
-        lens = torch.as_tensor(lengths, device=dev)
-
-        def run(scan):
-            for p in layer.parameters():
-                p.grad = None
-            xi = torch.nn.functional.linear(x, layer.weight_ih, layer.bias_ih)
-            y = scan(xi, layer.weight_hh, layer.bias_hn, lens)
-            (y * dy).sum().backward()
-            return [y.detach()] + [p.grad.clone() for p in layer.parameters()]
-
-        before = k3.gru_scan.launches
-        got = run(k3.gru_scan)
-        torch.cuda.synchronize()
-        assert k3.gru_scan.launches == before + 2, tag
-        want = run(k3.gru_scan_reference)
-        rel = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
-        log(f"[k3] {tag} (B, T, D, H) {(B, T, D, H)}: worst gap over largest entry of y, "
-            f"dW_ih, db_ih, dW_hh, db_hn: " + ", ".join(f"{r:.2e}" for r in rel)
-            + f" (limit {K3_REL})")
-        assert max(rel) <= K3_REL, (tag, rel)
-        return max(rel)
-
-    B, T, H = K3_CELL
-    cell_lens = torch.linspace(*K3_CELL_LENS, B).round().long().tolist()
-    worst = max(agree("the train cell's longest batch", B, T, H, H, cell_lens),
-                agree("the RNNLM's lm_loss", *K3_LM,
-                      torch.linspace(K3_LM[1], 1, K3_LM[0]).round().long().tolist()))
-
-    layer = MaskedGRULayer(H, H, device=dev)
-    layer.reset_parameters(gen)
-    lens = torch.as_tensor(cell_lens, device=dev)
-    xi = torch.randn(B, T, 3 * H, generator=gen).to(dev)
-    dy = torch.randn(B, T, H, generator=gen).to(dev)
-    w, b = layer.weight_hh.detach(), layer.bias_hn.detach()
-    log(f"[k3] layout at H {H}: {k3.launch_plan(H)}")
-    fwd_ms = graph_ms(lambda: k3._kernel_forward(xi, w, b, lens, True), reps=5)
-    infer_ms = graph_ms(lambda: k3._kernel_forward(xi, w, b, lens, False), reps=5)
-    y, gates = k3._kernel_forward(xi, w, b, lens, True)
-    bwd_ms = graph_ms(lambda: k3._kernel_backward(dy, y, gates, w, lens), reps=5)
-    x = torch.randn(B, T, H, generator=gen).to(dev)
-
-    def layer_step(scan):
-        for p in layer.parameters():
-            p.grad = None
-        xi_ = torch.nn.functional.linear(x, layer.weight_ih, layer.bias_ih)
-        (scan(xi_, layer.weight_hh, layer.bias_hn, lens) * dy).sum().backward()
-
-    layer_ms = cuda_ms(lambda: layer_step(k3.gru_scan), reps=3)
-    plain_ms = cuda_ms(lambda: layer_step(k3.gru_scan_reference), reps=1, repeats=3)
-    cudnn = torch.nn.GRU(H, H, batch_first=True, device=dev)
-    packed = torch.nn.utils.rnn.pack_padded_sequence(x, lens.cpu(), batch_first=True,
-                                                     enforce_sorted=False)
-    g_out = torch.randn(packed.data.shape, generator=gen).to(dev)
-
-    def library():
-        cudnn.zero_grad(set_to_none=True)
-        out, _ = cudnn(packed)
-        torch.autograd.backward(out.data, g_out)
-
-    library_ms = cuda_ms(library, reps=3)
-    (f_flops, f_bytes), (b_flops, b_bytes) = k3_work(B, T, H, cell_lens)
-    f_bound, f_by = k3_bound_ms(f_flops, f_bytes)
-    b_bound, b_by = k3_bound_ms(b_flops, b_bytes)
-    log(f"[k3] the train cell's longest batch (B, T, H) {(B, T, H)}, {sum(cell_lens)} valid "
-        f"frames: forward kernel_ms={fwd_ms:.4f} (without the gates {infer_ms:.4f}) "
-        f"bound_ms={f_bound:.4f} ({f_flops / 1e9:.2f} GFLOP, {f_bytes / 1e6:.1f} MB; {f_by}) "
-        f"share_of_bound={f_bound / fwd_ms:.3f}; backward kernel_ms={bwd_ms:.4f} "
-        f"bound_ms={b_bound:.4f} ({b_bytes / 1e6:.1f} MB; {b_by}) share_of_bound="
-        f"{b_bound / bwd_ms:.3f}; a layer forward + backward through autograd "
-        f"{layer_ms:.3f} ms, the plain loop's {plain_ms:.1f} ms, torch.nn.GRU (cuDNN, "
-        f"packed, TF32 off) library_ms={library_ms:.3f}; ms a frame forward "
-        f"{1e3 * fwd_ms / T:.2f} us, backward {1e3 * bwd_ms / T:.2f} us")
-
-    # K3's launches over one train step of train_am's --arch rnn model
-    args = train_am.get_parser().parse_args(
-        ["egs", "out", "--arch", "rnn", "--num_layers", str(HYBRID_TRAIN["num_layers"]),
-         "--hidden_dim", str(HYBRID_TRAIN["hidden_dim"])])
-    model = train_am.build_model(args, 20, HYBRID_CLASSES, dev)
-    trainer = Trainer(model, train_am.make_loss(args), TrainConfig())
-    state = trainer.init_state()
-    batch = {"feats": torch.randn(B, T, 20, generator=gen).to(dev), "lengths": lens,
-             "labels": torch.randint(0, HYBRID_CLASSES, (B, T), generator=gen).to(dev)}
-    k3_reset()
-    loss, _, _ = trainer.train_step(state, batch)
-    torch.cuda.synchronize()
-    step_launches = k3_read("train_step", 2 * HYBRID_TRAIN["num_layers"])
-    assert torch.isfinite(loss)
-    t_step, _ = wall_s(lambda: trainer.train_step(state, batch))
-    log(f"[k3] one train_am --arch rnn step ({HYBRID_TRAIN['num_layers']} x "
-        f"{HYBRID_TRAIN['hidden_dim']}, B {B}, T {T}): {step_launches} K3 launches, "
-        f"{t_step * 1e3:.1f} ms a step")
-    log(f"[k3] phase 6 (b) took {time.perf_counter() - t_phase:.1f} s")
-    return dict(shape=[B, T, H], max_rel_err=worst, ms=fwd_ms, backward_ms=bwd_ms,
-                bound_ms=f_bound, backward_bound_ms=b_bound, bound_by=f_by,
-                layer_ms=layer_ms, plain_ms=plain_ms, library_ms=library_ms)
 
 
 def _rel(a, b):
@@ -1470,7 +1347,7 @@ def hybrid_train_phase(xh, lh, rng, dev, tmp):
     FDLP (K1) -> global CMVN -> egs with seeded frame labels ->
     train_am.main --arch rnn at full width. Returns K1's launches over the
     path (featgen through training); K3's over train_am.main go under
-    K3_LAUNCHES["hybrid_train"], the main path's count."""
+    K3.by_path["hybrid_train"], the main path's count."""
     import os
 
     from speech_recognition_tools_tpu_torch.cli import train_am
@@ -1503,7 +1380,7 @@ def hybrid_train_phase(xh, lh, rng, dev, tmp):
               num_targets=HYBRID_CLASSES)
     argv = [egs, store, "--arch", "rnn", "--dev_egs_dir", dev_egs, "--device", str(dev)]
     argv += [a for k, v in H.items() for a in (f"--{k}", str(v))]
-    k3_reset()
+    K3.reset()
     st = train_am.main(argv)
     torch.cuda.synchronize()
     t_path = time.perf_counter() - t_path
@@ -1511,7 +1388,7 @@ def hybrid_train_phase(xh, lh, rng, dev, tmp):
     # its dev batches forward, once a layer each
     train_batches, dev_batches = (sum(1 for _ in iter_egs_batches(d, H["batch_size"]))
                                   for d in (egs, dev_egs))
-    k3_main = k3_read("hybrid_train",
+    k3_main = K3.read("hybrid_train",
                       H["epochs"] * H["num_layers"] * (2 * train_batches + dev_batches))
     launches = lpc_cepstra.launches
     assert launches > 0, "the hybrid training path did not launch K1"
@@ -1568,27 +1445,6 @@ def hybrid_train_phase(xh, lh, rng, dev, tmp):
     assert _rel(g_g, g_c) <= 1e-4, (g_g, g_c)
     assert upd_err <= 1e-3 * H["learning_rate"], upd_err
 
-    # a full batch of the recipe's 32: ms a step by part, memory, profile
-    tr, st2 = fresh(dev)
-    full = to(next(iter_egs_batches(egs, 32)), dev)
-    tr.train_step(st2, full)
-    rows = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        for p in st2.params.values():
-            p.grad = None
-        t_f, (loss, _) = _synced(lambda: loss_fn(tr.model, full, True))
-        t_b, _ = _synced(loss.backward)
-        grads = {k: p.grad for k, p in st2.params.items()}
-        t_o, (st2.opt_state, _) = _synced(lambda: tr.opt.apply(st2.params, grads, st2.opt_state))
-        rows.append({"forward": t_f, "backward": t_b, "optimizer": t_o})
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    parts = _median_parts(rows)
-    # the steps timed part by part above warmed it: one timed step (for time)
-    t_step, _ = wall_s(lambda: tr.train_step(st2, full), repeats=1, warmup=False)
-    device_breakdown(f"hybrid train step (B={len(full['lengths'])})",
-                     lambda: tr.train_step(st2, full))
-    audio_s = float(full["lengths"].sum()) / hyb.frate
     log(f"[hybrid-train] timit_hybrid: train_am.main --arch rnn {H['num_layers']} x "
         f"{H['hidden_dim']} GRU, {HYBRID_CLASSES} "
         f"classes, {H['epochs']} epochs x 2 batches of {H['batch_size']} + a dev batch: "
@@ -1603,25 +1459,7 @@ def hybrid_train_phase(xh, lh, rng, dev, tmp):
         f"max|update diff| {e2e_err:.3e}, {off.numel()} entries above the limit, their "
         f"largest |gradient| {off_g:.3e}; the gradient that differs most: {g_worst[0]}, "
         f"|diff| {g_worst[1]:.3e} of the global norm, {g_worst[2]:.3e} of its own")
-    log(f"[hybrid-train] B={len(full['lengths'])} ({audio_s:.1f} s audio, {int(full['feats'].shape[1])} frames "
-        f"padded): {t_step * 1e3:.1f} ms a step = {audio_s / t_step:.1f} audio s per s; "
-        f"synchronised parts: "
-        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in parts.items())
-        + f"; peak memory {peak:.2f} GiB")
     return launches
-
-
-def random_transcript(rng, letters, n_chars, repeat_p=0.15):
-    """n_chars of words over `letters`, with doubled letters at repeat_p."""
-    out = []
-    while len(out) < n_chars:
-        if out and out[-1] != " " and rng.rand() < 0.2:
-            out.append(" ")
-        elif out and out[-1] != " " and rng.rand() < repeat_p:
-            out.append(out[-1])
-        else:
-            out.append(letters[rng.randint(len(letters))])
-    return "".join(out).strip().replace("  ", " ")
 
 
 def e2e_train_phase(x, lens, fdlp_cfg, rng, dev, tmp):
@@ -2018,7 +1856,7 @@ def serve_phase(x, lens, fdlp_cfg, feats, nfr, rng, dev, tmp):
         assert t_need <= MAIN_PATH_TOL and rel <= MAIN_PATH_REL, (t_need, rel)
         ms = graph_ms(lambda: lpc_cepstra(r, order, lim))
         plain = cuda_ms(lambda: lpc_cepstra_reference(r, order, lim), reps=2, repeats=3)
-        bound, by = k1_bound_ms(P, order, lim)
+        bound, by = bound_ms(*k1_work(P, order, lim))
         k1.append(dict(P=P, err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by))
         log(f"[serve-k1] P={P} order={order} lim={lim}: max|kernel - plain|={err:.3e} "
             f"kernel_ms={ms:.4f} plain_ms={plain:.3f} bound_ms={bound:.5f} ({by}) "
@@ -2047,16 +1885,16 @@ def serve_phase(x, lens, fdlp_cfg, feats, nfr, rng, dev, tmp):
     build_egs(((f"utt{b}", feats[b, : int(nfr[b])].cpu().numpy())
                for b in range(SERVE_RECOG_UTTS)), egs, cmvn=(mean, std))
     common = ["--lm_dir", lm_dir, "--max_len", str(SERVE_RECOG_MAX_LEN), "--device", str(dev)]
-    k2_reset()
+    K2.reset()
     t_jit, hyp_jit = _synced(lambda: recog_e2e.main(
         [model_dir, egs, os.path.join(tmp, "hyp_jit"), "--jit_decode", "--batch_size",
          str(SERVE_RECOG_UTTS), *common]))
-    k2_read("recog_e2e_jit")
-    k2_reset()
+    K2.read("recog_e2e_jit")
+    K2.reset()
     t_str, hyp_str = _synced(lambda: recog_e2e.main(
         [model_dir, egs, os.path.join(tmp, "hyp_stream"), "--streaming", "--streaming_final",
          "beam", *common]))
-    k2_read("stream_final_beam")  # one B = 1 search an utterance
+    K2.read("stream_final_beam")  # one B = 1 search an utterance
     assert sorted(hyp_jit) == sorted(hyp_str) and len(hyp_jit) == SERVE_RECOG_UTTS
     lm = recog_e2e._load_lm(lm_dir, device=dev)
     recog_gaps = []
@@ -2626,13 +2464,13 @@ def conformer_phase(x, lens, fdlp_cfg, feats, nfr, rng, dev, tmp):
 
     # the main path, counted, through the entry point a user calls
     lpc_cepstra.launches = 0
-    k2_reset()
+    K2.reset()
     t_first, texts = _synced(lambda: recognize_batch(
         x, lens, fdlp_cfg, mean, std, asr, vocab, lm=lm, **E2E_BEAM, max_len=CONF_MAX_LEN,
         device=dev))
     launches = lpc_cepstra.launches
     assert launches > 0, "the conformer path did not launch K1"
-    k2_read("conformer_e2e")
+    K2.read("conformer_e2e")
     t_front, (f, n) = wall_s(lambda: front(fdlp_cfg))
     t_enc, (mem, enc_len, ctc) = wall_s(lambda: encode(f, n))
     # recognize_batch has just run this search: no warm-up call
@@ -2971,7 +2809,7 @@ def modspec_phase(x, lens, dev, tmp):
                      cuda_ms(lambda u=unity: lpc_cepstra_reference(r, cfg.order, cfg.coeff_n,
                                                                    unity_gain=u),
                              reps=1, repeats=3))
-    bound, by = k1_bound_ms(P, cfg.order, cfg.coeff_n)
+    bound, by = bound_ms(*k1_work(P, cfg.order, cfg.coeff_n))
     device_breakdown(f"modulation_spectrum_batch, {B} utterances",
                      lambda: modspec.modulation_spectrum_batch(xb, lb, cfg, device=dev))
     for name, (t_card, t_cpu, err, p99, share, scale) in rows.items():
@@ -3015,9 +2853,9 @@ def incremental_phase(e2e, dev):
 
     search(True, n=2, max_len=5)  # first launches of the step's shapes
     t_full, (tf, sf) = _synced(lambda: search(False))
-    k2_reset()
+    K2.reset()
     t_inc, (ti, si) = _synced(lambda: search(True))
-    k2_read("incremental", search_steps(ti))
+    K2.read("incremental", search_steps(ti))
     steps = search_steps(tf)
     assert torch.isfinite(si).all() and ti.shape == tf.shape
     B = len(enc_len)
@@ -3105,13 +2943,13 @@ def bf16_phase(e2e, x, lens, fdlp_cfg, fa, na, rng, dev, tmp):
 
     # the main path in bf16, counted, through the entry point a user calls
     lpc_cepstra.launches = 0
-    k2_reset()
+    K2.reset()
     texts16 = recognize_batch(x, lens, fdlp_cfg, mean, std, asr16, vocab, lm=lm, **E2E_BEAM,
                               max_len=BF16_MAX_LEN, device=dev)
     torch.cuda.synchronize()
     launches = lpc_cepstra.launches
     assert launches > 0, "the bf16 e2e path did not launch K1"
-    k2_read("bf16_e2e")
+    K2.read("bf16_e2e")
 
     def encode(m, f=feats, n=nfr):
         with torch.no_grad():
@@ -4360,7 +4198,7 @@ def _k1_on_path(tag, r, order, lim, tol, rel):
     assert t_need <= tol and worst <= rel, (tag, t_need, worst)
     ms = graph_ms(lambda: lpc_cepstra(r, order, lim))
     plain = cuda_ms(lambda: lpc_cepstra_reference(r, order, lim), reps=1, repeats=3)
-    bound, by = k1_bound_ms(r.shape[0], order, lim)
+    bound, by = bound_ms(*k1_work(r.shape[0], order, lim))
     log(f"[k1] {tag} lags P={r.shape[0]} order={order} lim={lim}: max|kernel - plain|="
         f"{err:.3e} kernel_ms={ms:.4f} plain_ms={plain:.3f} bound_ms={bound:.5f} ({by})")
     return err
@@ -4734,10 +4572,10 @@ def wordlm_phase(x, lens, fdlp_cfg, rng, dev, tmp):
               j("wlm_egs_cpu"))
     common = ["--word_lm_dir", store, "--word_lm_dict", j("wlm_dict.txt"), "--beam_size",
               str(E2E_BEAM["beam_size"]), "--max_len", str(WORDLM_MAX_LEN)]
-    k2_reset()
+    K2.reset()
     t_off, hyps = _synced(lambda: recog_e2e.main(
         [j("cl_m5"), j("wlm_egs"), j("wlm_hyp.txt"), *common, "--device", str(dev)]))
-    k2_read("wordlm_decode")
+    K2.read("wordlm_decode")
     t_str, hyps_s = _synced(lambda: recog_e2e.main(
         [j("cl_m5"), j("wlm_egs"), j("wlm_hyp_stream.txt"), *common, "--streaming",
          "--attn_chunk", str(SERVE_CHUNK["attn_chunk"]), "--attn_left_chunks",
@@ -5556,6 +5394,14 @@ PAR_RING_UTTS, PAR_RING_SECONDS = 4, (20.0, 30.0)
 PAR_RING_DECODE = ["--beam_size", "4", "--max_len", "15"]
 PAR_LOSS_REL, PAR_GNORM_REL = 1e-5, 1e-4  # phase 7's card-vs-CPU step limits
 PAR_FEAT_TOL = dict(rtol=1e-3, atol=2e-3)  # phase 3's
+# (a)'s batches: one length bucket over phase 3's 6-10 s utterances, so
+# that every batch pads to 10 s and the one-process reference, at half the
+# batch size, runs each rank's rows of a data-parallel batch as a batch of
+# its own. Featgen is batch-dependent in float32 (an utterance's features
+# in a batch of 32 and in its half of it differ by up to 3.7e-3 at --seed
+# 0 on the H100, its lags by 7e-7 of their scale), and (a) holds the
+# data-parallel path, not that
+PAR_FEAT_BUCKET = ["--bucket_seconds", "10"]
 PAR_RING_ATOL = 1e-4
 # each parallel run's parameter change over its 2 steps against one
 # process's: over the whole model |error| <= PAR_UPDATE_REL |change|, and
@@ -5727,7 +5573,8 @@ def _p18_dp_featgen(rec, rank, world, scp, out, x, lens):
 
     dev = torch.device("cuda")
     s, share, launches, _ = rec.run(compute_fdlp_spectrogram.main,
-                                    [scp, out, *WSJ_FDLP_FLAGS, "--data_parallel"])
+                                    [scp, out, *WSJ_FDLP_FLAGS, *PAR_FEAT_BUCKET,
+                                     "--data_parallel"])
     cfg = FdlpConfig(nfilters=80, order=150, fduration=1.5, coeff_num=100, coeff_range="1,100")
     first = np.argsort(lens, kind="stable")[:32]
     mine = first[batch_sharding(make_mesh()).rows(len(first))]
@@ -5793,9 +5640,8 @@ def _p18_train_am(rec, rank, world, argv):
     """train_am.main with a parallel mode: first-step loss and gradient
     norm, the exchange share, K3's launches on this rank."""
     from speech_recognition_tools_tpu_torch.cli import train_am
-    from speech_recognition_tools_tpu_torch.ops.gru_scan import gru_scan
 
-    k3_reset()
+    K3.reset()
     s, share, _, st = rec.run(train_am.main, argv)
     return dict(s=s, share=share, loss=rec.losses[0], gnorm=rec.gnorms[0],
                 steps=len(rec.gnorms), train_loss=st.history[0]["train_loss"],
@@ -5936,7 +5782,8 @@ def parallel_phase(x, lens, fdlp_cfg, rng, dev, tmp, beside=None):
         # the one-process references on the card
         t_ref = time.perf_counter()
         _, _, ref_launches, _ = rec.run(_captured, compute_fdlp_spectrogram.main,
-                                        [j("p18_wav.scp"), j("p18_one"), *WSJ_FDLP_FLAGS])
+                                        [j("p18_wav.scp"), j("p18_one"), *WSJ_FDLP_FLAGS,
+                                         *PAR_FEAT_BUCKET, "--batch_size", str(len(lens) // 2)])
         one = dict(read_ark(j("p18_one.ark")))
         fs, ns = fdlp_spectrogram_batch(xs, ls, fdlp_cfg, device=dev)
         fs, ns = fs.cpu().numpy(), ns.cpu().numpy()
@@ -5959,7 +5806,8 @@ def parallel_phase(x, lens, fdlp_cfg, rng, dev, tmp, beside=None):
     w2, w4, w1 = worlds[(2, "gloo")], worlds[(4, "gloo")], worlds[(1, "nccl")]
     note = "(ranks sharing one card: correctness and overhead, not scaling)"
 
-    # (a) data-parallel featgen: the ark of rank 0 against the one-process CLI's
+    # (a) data-parallel featgen: the ark of rank 0 against the one-process
+    # CLI's over the same batches of each rank's rows
     dp = dict(read_ark(j("p18_dp.ark")))
     assert list(dp) == list(one)
     ferr = max(float(np.abs(dp[k] - one[k]).max()) for k in one)
@@ -5974,11 +5822,12 @@ def parallel_phase(x, lens, fdlp_cfg, rng, dev, tmp, beside=None):
             f"first batch's rows P={P}: max|kernel - plain| {err:.3e}, allclose needs "
             f"{t_need:.3e}, worst {worst:.3e} (limits {NEAR_PERIODIC_TOL}, "
             f"{NEAR_PERIODIC_REL}); kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} "
-            f"bound_ms={k1_bound_ms(P, 150, 100)[0]:.5f}")
+            f"bound_ms={1e3 * k1_bound_s(P, 150, 100):.5f}")
     a = w2[0]["dp_featgen"]
     log(f"[parallel] (a) compute_fdlp_spectrogram --data_parallel, 2 ranks, 32 utterances at "
         f"wsj_fdlp_e2e: {a['s'] * 1e3:.0f} ms ({100 * a['share']:.1f}% in exchanges) against "
-        f"one process {ref_launches} K1 launches; ark max|2 ranks - 1 process| {ferr:.3e} "
+        f"one process {ref_launches} K1 launches on each rank's rows as a batch; ark "
+        f"max|2 ranks - 1 process| {ferr:.3e} "
         f"(rtol 1e-3, atol 2e-3); audio {float(lens.sum()) / 16000:.1f} s = "
         f"{float(lens.sum()) / 16000 / a['s']:.1f}x real time per world, "
         f"{float(lens.sum()) / 16000 / a['s'] / 2:.1f}x per rank {note}")
@@ -6007,7 +5856,7 @@ def parallel_phase(x, lens, fdlp_cfg, rng, dev, tmp, beside=None):
         P, err, t_need, worst, k_ms, p_ms = res["seq_featgen"]["k1"]
         log(f"[parallel] seq_featgen rank {r_} block of frames P={P}: max|kernel - plain| "
             f"{err:.3e}, allclose needs {t_need:.3e}, worst {worst:.3e}; kernel_ms={k_ms:.4f} "
-            f"plain_ms={p_ms:.3f} bound_ms={k1_bound_ms(P, 150, 100)[0]:.5f}")
+            f"plain_ms={p_ms:.3f} bound_ms={1e3 * k1_bound_s(P, 150, 100):.5f}")
 
     # (c) training: the first step against the one-process step
     e2e_ref = refs["e2e"]
@@ -6071,7 +5920,7 @@ def parallel_phase(x, lens, fdlp_cfg, rng, dev, tmp, beside=None):
     for tag, ref in (("am_dp", refs["rnn"]), ("am_ep", refs["curl"])):
         res = w2[0][tag]
         for rank, r in enumerate(w2):
-            K3_LAUNCHES[f"{tag}_rank{rank}"] = r[tag]["k3"]
+            K3.by_path[f"{tag}_rank{rank}"] = r[tag]["k3"]
         assert _rel(res["loss"], ref["loss"]) <= PAR_LOSS_REL, (tag, res, ref)
         assert _rel(res["gnorm"], ref["gnorm"]) <= PAR_GNORM_REL, (tag, res, ref)
         log(f"[parallel] (e) train_am {'--data_parallel (3 x 512 GRU)' if tag == 'am_dp' else '--arch curl --expert_parallel 2'}: "
@@ -6149,32 +5998,28 @@ def main():
 
     with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
         native_build = pool.submit(native.build)
-        kernels.build()
-        log(f"[build] K1 built in {time.perf_counter() - t0:.2f} s")
-        t_k2 = time.perf_counter()
-        kernels.build("ctc_prefix")
-        log(f"[build] K2 built in {time.perf_counter() - t_k2:.2f} s: "
-            + "; ".join(ln.strip() for ln in kernels.build_log("ctc_prefix").splitlines()
-                        if "Used" in ln or "spill" in ln))
-        t_k3 = time.perf_counter()
-        kernels.build("gru_scan")
-        log(f"[build] K3 built in {time.perf_counter() - t_k3:.2f} s: "
-            + "; ".join(ln.strip() for ln in kernels.build_log("gru_scan").splitlines()
-                        if "Compiling" in ln or "Used" in ln or "spill" in ln))
+        for name in kernels.KERNELS:
+            t_k = time.perf_counter()
+            kernels.build(name)
+            log(f"[build] {name} built in {time.perf_counter() - t_k:.2f} s")
         log(f"[build] native decoder built ({os.path.basename(native_build.result())}) in "
             f"{time.perf_counter() - t0:.2f} s")
+    # each compiled entry function's registers and spills; none allowed in
+    # the K1 instantiations that the configs' launch plans pick
+    used = {launch_plan(order, lim)[:2] for order, lim in CONFIG_SHAPES}
+    for name in kernels.KERNELS:
+        for d in kernels.register_report(name):
+            plan = name == "lpc_cepstra" and d["template"] in used
+            log(f"[build] {name} {d['kernel']}{list(d['template'])}: {d['registers']} "
+                f"registers, stack {d['stack']} B, spill stores {d['spill_stores']} B, spill "
+                f"loads {d['spill_loads']} B{' (a config plan)' if plan else ''}")
+            if plan:
+                assert d["spill_stores"] == d["spill_loads"] == d["stack"] == 0, d
 
     phase_done(1, t_run, t_run)
     t2 = time.perf_counter()
-    # ---- 2. K1 against its plain version ----
+    # ---- 2. K1 against its plain version; the kernels alone ----
     all_lanes, _ = kernels.instantiations()
-    used = {launch_plan(order, lim)[:2] for order, lim in CONFIG_SHAPES}
-    for d in kernels.register_report():
-        log(f"[build] K1 lanes={d['lanes']} chunk={d['chunk']}: {d['registers']} registers, "
-            f"stack {d['stack']} B, spill stores {d['spill_stores']} B, spill loads "
-            f"{d['spill_loads']} B{' (a config plan)' if (d['lanes'], d['chunk']) in used else ''}")
-        if (d["lanes"], d["chunk"]) in used:
-            assert d["spill_stores"] == d["spill_loads"] == d["stack"] == 0, d
     TOL = 1e-4
     k1_err = 0.0
     cases = [(23040, 150, 100, False), (10240, 50, 50, False),
@@ -6201,12 +6046,13 @@ def main():
         log(f"[k1] P={P} order={order} lim={lim} unity_gain={unity} "
             f"plan={launch_plan(order, lim)} max|err|={err:.3e}")
     log(f"[k1] AR lags: max|err| {k1_err:.3e} <= rtol=atol={TOL}")
-    # every lane count and block size at the three timed shapes, each held
-    # to the plain version, then the plan's own choice timed beside it
-    for P, order, lim in TIMED_SHAPES:
+    # every lane count and block size at the swept shapes, each held to the
+    # plain version (launch_plan's choice among them is pinned by
+    # tests/test_torch_k1_plan.py)
+    swept = 0
+    for P, order, lim in SWEPT_SHAPES:
         r = lags[(P, order)]
         ref = lpc_cepstra_reference(r, order, lim)
-        bound, by = k1_bound_ms(P, order, lim)
         for lanes in all_lanes:
             for threads in (64, 128, 256):
                 try:
@@ -6216,15 +6062,9 @@ def main():
                 got = lpc_cepstra(r, order, lim, plan=plan)
                 torch.cuda.synchronize()
                 assert torch.allclose(got, ref, rtol=TOL, atol=TOL), (P, order, lim, plan)
-                ms = graph_ms(lambda: lpc_cepstra(r, order, lim, plan=plan))
-                log(f"[k1-sweep] P={P} order={order} lim={lim} plan={plan} "
-                    f"kernel_ms={ms:.4f} share_of_bound={bound / ms:.3f}")
-        ms = graph_ms(lambda: lpc_cepstra(r, order, lim))
-        call = cuda_ms(lambda: lpc_cepstra(r, order, lim), reps=20)
-        plain = cuda_ms(lambda: lpc_cepstra_reference(r, order, lim), reps=1, repeats=3)
-        log(f"[k1] P={P} order={order} lim={lim} plan={launch_plan(order, lim)} "
-            f"kernel_ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.3f} "
-            f"bound_ms={bound:.4f} ({by}) share_of_bound={bound / ms:.3f}")
+                swept += 1
+    log(f"[k1] {swept} plans over every lane count and block size at {SWEPT_SHAPES}: each "
+        f"within rtol=atol={TOL}")
     e2e = FdlpConfig(nfilters=80, order=150, fduration=1.5, coeff_num=100,
                      coeff_range="1,100")
     sig = near_periodic()
@@ -6248,6 +6088,7 @@ def main():
                                     got, ref)
     # ~4x the readings recorded in PERF.md (1.2e-3 and 4.9e-2)
     assert np_t <= NEAR_PERIODIC_TOL and np_rel <= NEAR_PERIODIC_REVERB_REL, (np_t, np_rel)
+    table = kernel_table(gen, dev)
 
     phase_done(2, t2, t_run)
     t3 = time.perf_counter()
@@ -6255,22 +6096,18 @@ def main():
     x, lens = speechlike_batch(rng, 32, 6.0, 10.0)
     audio_s = float(lens.sum()) / 16000
     lpc_cepstra.launches = 0
-    t_auto, (fa, na) = wall_s(lambda: fdlp_spectrogram_batch(x, lens, e2e, device=dev))
+    fa, na = fdlp_spectrogram_batch(x, lens, e2e, device=dev)
     featgen_launches = lpc_cepstra.launches
     scan = FdlpConfig(**{**e2e.__dict__, "lpc_backend": "scan"})
-    t_scan, (fs, ns) = wall_s(lambda: fdlp_spectrogram_batch(x, lens, scan, device=dev),
-                              repeats=1)
+    fs, ns = fdlp_spectrogram_batch(x, lens, scan, device=dev)
     assert featgen_launches > 0, "featgen did not launch K1"
     assert torch.equal(na, ns)
     va, vs = valid_rows(fa, na), valid_rows(fs, ns)
     assert torch.isfinite(va).all() and torch.isfinite(vs).all()
     ferr = (va - vs).abs().max().item()
     assert torch.allclose(va, vs, rtol=1e-3, atol=2e-3), ferr
-    log(f"[featgen] wsj_fdlp_e2e 32 x 6-10 s ({audio_s:.1f} s audio), LPC rows "
-        f"P={fdlp_lags(x[:1], lens[:1], e2e, device=dev)[0].shape[0] * 32 * 80}: "
-        f"auto(K1) {t_auto * 1e3:.2f} ms/batch = {audio_s / t_auto:.1f}x real time; "
-        f"scan(plain) {t_scan * 1e3:.2f} ms/batch; K1 launches {featgen_launches} "
-        f"over 4 batches; max|auto - scan| on valid frames {ferr:.3e} "
+    log(f"[featgen] wsj_fdlp_e2e 32 x 6-10 s ({audio_s:.1f} s audio): K1 launches "
+        f"{featgen_launches}; max|auto(K1) - scan(plain)| on valid frames {ferr:.3e} "
         f"(rtol 1e-3, atol 2e-3)")
 
     phase_done(3, t3, t_run)
@@ -6317,8 +6154,6 @@ def main():
         lo_gpu = model(feats[:2, : int(two.max())], nfr[:2]).cpu()
     amerr = (valid_rows(lo_gpu, two) - valid_rows(lo_cpu, two)).abs().max().item()
     assert amerr < 1e-4, amerr
-    device_breakdown("featgen wsj_fdlp_e2e batch",
-                     lambda: fdlp_spectrogram_batch(x, lens, e2e, device=dev))
     device_breakdown("hybrid front-end batch", lambda: front(hyb))
     device_breakdown("hybrid AM batch", lambda: am(feats, nfr))
     t_front, (feats, nfr) = wall_s(lambda: front(hyb))
@@ -6332,39 +6167,28 @@ def main():
         f"total {(t_front + t_am) * 1e3:.2f} ms = {hyb_audio / (t_front + t_am):.1f}x "
         f"real time")
 
-    # K1 at the main path's own lags: time, plain time, error, bound
+    # K1 against its plain version on the main path's own lags
     r, _ = fdlp_lags(xh, lh, hyb, device=dev)
     r = r.reshape(-1, r.shape[-1])
-    P = r.shape[0]
     got = lpc_cepstra(r, hyb.order, hyb.coeff_num)
     ref = lpc_cepstra_reference(r, hyb.order, hyb.coeff_num)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
-    main_err, main_t, main_rel = cep_agreement(f"main-path lags P={P}", got, ref)
+    _, main_t, main_rel = cep_agreement(f"main-path lags P={r.shape[0]}", got, ref)
     # 4-6x the readings recorded in PERF.md (1.7e-4 and 2.7e-3); the
     # per-coefficient limit holds the small late cepstra too
     assert main_t <= MAIN_PATH_TOL and main_rel <= MAIN_PATH_REL, (main_t, main_rel)
-    k_ms = graph_ms(lambda: lpc_cepstra(r, hyb.order, hyb.coeff_num))
-    call_ms = cuda_ms(lambda: lpc_cepstra(r, hyb.order, hyb.coeff_num), reps=20)
-    p_ms = cuda_ms(lambda: lpc_cepstra_reference(r, hyb.order, hyb.coeff_num),
-                   reps=2, repeats=3)
-    bound, by = k1_bound_ms(P, hyb.order, hyb.coeff_num)
-    log(f"[k1] main-path lags P={P} order={hyb.order} lim={hyb.coeff_num}: "
-        f"max|kernel - plain|={main_err:.3e} kernel_ms={k_ms:.4f} call_ms={call_ms:.4f} "
-        f"plain_ms={p_ms:.3f} bound_ms={bound:.5f} ({by})")
 
     phase_done(4, t4, t_run)
     t5 = time.perf_counter()
     # ---- 5. the e2e slice at wsj_fdlp_e2e ----
     e2e_launches, e2e_model = e2e_phase(x, lens, e2e, rng, dev)
-    k2 = k2_phase(e2e_model, gen, dev)
     phase_done(5, t5, t_run)
 
     # ---- 6-7. the training paths; 8. online serving ----
     with tempfile.TemporaryDirectory() as tmp:
         t6 = time.perf_counter()
         hybrid_train_launches = hybrid_train_phase(xh, lh, rng, dev, tmp)
-        k3 = k3_phase(gen, dev)
         phase_done(6, t6, t_run)
         t7 = time.perf_counter()
         e2e_train_launches = e2e_train_phase(x, lens, e2e, rng, dev, tmp)
@@ -6375,19 +6199,19 @@ def main():
         phase_done(8, t8, t_run)
         # ---- 9. the LM stage, the hybrid decode end, ctc_weight 1.0 ----
         t9 = time.perf_counter()
-        k3_reset()
+        K3.reset()
         lm_train_phase(e2e_model, rng, dev, tmp)
-        k3_read("rnnlm_lm_loss")
-        k3_reset()
+        K3.read("rnnlm_lm_loss")
+        K3.reset()
         decode_launches = hybrid_decode_phase(rng, dev, tmp)
-        k3_read("hybrid_posteriors")
+        K3.read("hybrid_posteriors")
         ctc_only_check(e2e_model)
         phase_done(9, t9, t_run)
         # ---- 10. the MFCC hybrid front-end and the conformer ----
         t10 = time.perf_counter()
-        k3_reset()
+        K3.reset()
         mfcc_phase(x, lens, rng, dev, tmp)
-        k3_read("mfcc_train")
+        K3.read("mfcc_train")
         conf_launches, conf_stream_launches = conformer_phase(x, lens, e2e, fa, na, rng, dev,
                                                               tmp)
         phase_done(10, t10, t_run)
@@ -6406,31 +6230,31 @@ def main():
         phase_done(12, t12, t_run)
         # ---- 13. the hybrid recipes' PM stage, the recurrent half of the zoo ----
         t13 = time.perf_counter()
-        k3_reset()
+        K3.reset()
         pm_launches = pm_stage_phase(rng, dev, tmp)
-        k3_read("pm_stage")
-        k3_reset()
+        K3.read("pm_stage")
+        K3.reset()
         zoo_phase(dev, tmp)
-        k3_read("zoo")
+        K3.read("zoo")
         phase_done(13, t13, t_run)
         # ---- 14. the conv zoo, adaptation, lifelong decoding, the CL decode ----
         t14 = time.perf_counter()
         conv_zoo_phase(dev, tmp, args.seed)
-        k3_reset()
+        K3.reset()
         adapt_launches = adapt_phase(rng, dev, tmp)
-        k3_read("adapt")
-        k3_reset()
+        K3.read("adapt")
+        K3.reset()
         lifelong_phase(dev, tmp)
-        k3_read("lifelong")
+        K3.read("lifelong")
         cl_phase(e2e_model, dev, tmp)
         phase_done(14, t14, t_run)
         # ---- 15. int8 serving, the look-ahead word LM, forced alignment ----
         t15 = time.perf_counter()
         int8_launches = int8_phase(x, lens, e2e, fa, na, rng, dev, tmp)
         wordlm_launches = wordlm_phase(x, lens, e2e, rng, dev, tmp)
-        k3_reset()
+        K3.reset()
         align_launches = align_phase(xh, lh, rng, dev, tmp)
-        k3_read("align")
+        K3.read("align")
         phase_done(15, t15, t_run)
         # ---- 16. stage-0 enhancement, SE scores, augmented featgen ----
         t16 = time.perf_counter()
@@ -6448,11 +6272,7 @@ def main():
         phase_done(18, t17, t_run)  # phase 17 included
 
     # ---- 19. every kernel of the port ----
-    # every GRU path on the card launched K3 (the main path and one train
-    # step their exact counts, where they ran)
-    log(f"[k3] launches by path: {K3_LAUNCHES}")
-    silent = sorted(path for path, n in K3_LAUNCHES.items() if n <= 0)
-    assert not silent, f"these GRU paths did not launch K3: {silent}"
+    log(f"[k3] launches by path: {K3.by_path}")
     log(json.dumps({"kernels": [{
         "name": "lpc_cepstra",
         "route": "cuda",
@@ -6474,51 +6294,26 @@ def main():
                              "wordlm_decode": wordlm_launches, "align": align_launches,
                              "enhanced_augmented_featgen": enh_launches,
                              **recipe_launches, **parallel_launches},
-        "max_abs_err": main_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": bound,
-        "bound_by": by,
-        # no single PyTorch call computes Levinson-Durbin + LPC cepstra
-        "library_ms": None,
+        **table["lpc_cepstra"],
     }, {
         "name": "ctc_prefix",
         "route": "cuda",
         "source": "speech_recognition_tools_tpu_torch/csrc/ctc_prefix.cu",
         # no Pallas kernel: XLA fused the JAX package's lax.scan
         "replaces": "speech_recognition_tools_tpu/decode/ctc_prefix.py (lax.scan)",
-        "launches": K2_LAUNCHES["e2e"],
-        "launches_by_path": K2_LAUNCHES,
-        "shape": k2["shape"],
-        "max_abs_err": k2["max_abs_err"],
-        "max_rel_err": k2["max_rel_err"],
-        "ms": k2["ms"],
-        "plain_ms": k2["plain_ms"],
-        "bound_ms": k2["bound_ms"],
-        "bound_by": "bytes",
-        # F.ctc_loss sums over every alignment of one whole sequence: not
-        # the prefix scores of every extension of a beam
-        "library_ms": None,
+        "launches": K2.by_path["e2e"],
+        "launches_by_path": K2.by_path,
+        **table["ctc_prefix"],
     }, {
         "name": "gru_scan",
         "route": "cuda",
         "source": "speech_recognition_tools_tpu_torch/csrc/gru_scan.cu",
         # no Pallas kernel: XLA compiled the JAX package's lax.scan
         "replaces": "speech_recognition_tools_tpu/models/recurrent.py (lax.scan)",
-        "launches": K3_LAUNCHES["hybrid_train"],
-        "launches_by_path": K3_LAUNCHES,
-        "shape": k3["shape"],
-        "max_rel_err": k3["max_rel_err"],
-        "ms": k3["ms"],
-        "backward_ms": k3["backward_ms"],
-        "layer_ms": k3["layer_ms"],
-        "plain_ms": k3["plain_ms"],
-        "bound_ms": k3["bound_ms"],
-        "backward_bound_ms": k3["backward_bound_ms"],
-        "bound_by": k3["bound_by"],
-        # torch.nn.GRU (cuDNN) forward + backward at the same shape, a
-        # yardstick the port never calls
-        "library_ms": k3["library_ms"],
+        "launches": K3.by_path["hybrid_train"],
+        "launches_by_path": K3.by_path,
+        **table["gru_scan"],
+        "layer_ms": table["gru_scan"]["call_ms"],  # its call is a layer through autograd
     }]}))
 
     log(f"[run] {time.perf_counter() - t_run:.1f} s from start to the contract line")

@@ -312,7 +312,7 @@ def make_server(model_dir, ckpt="final_avg", host="127.0.0.1", port=0, max_strea
     if next(model.parameters()).device.type == "cuda":
         from speech_recognition_tools_tpu_torch import kernels
 
-        kernels.load()
+        kernels.load("lpc_cepstra")
     if fdlp_cfg is None:
         fdlp_cfg = resolve_frontend(model_dir, ckpt=ckpt)
     if cmvn is None:

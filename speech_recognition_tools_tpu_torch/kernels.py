@@ -121,7 +121,7 @@ KERNELS = {
 }
 
 
-def library_path(name: str = "lpc_cepstra") -> str:
+def library_path(name: str) -> str:
     """Where a kernel's library is built: `_build/lib<name>-<hash>.so`."""
     k = KERNELS[name]
     h = hashlib.sha1()
@@ -132,7 +132,7 @@ def library_path(name: str = "lpc_cepstra") -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
-def build_log(name: str = "lpc_cepstra") -> str:
+def build_log(name: str) -> str:
     """Compiler output (`-Xptxas -v`: registers, shared memory, spills)."""
     path = library_path(name) + ".log"
     if not os.path.exists(path):
@@ -141,18 +141,19 @@ def build_log(name: str = "lpc_cepstra") -> str:
         return f.read()
 
 
-def register_report(log: str | None = None) -> list[dict]:
-    """One entry per compiled K1 instantiation in its build log: lanes,
-    chunk, registers, stack bytes, spill store and load bytes."""
-    log = build_log() if log is None else log
+def register_report(name: str, log: str | None = None) -> list[dict]:
+    """One entry per entry function compiled into a kernel's library, from
+    its `-Xptxas -v` build log (`log`, or the built library's): the
+    function's name (`kernel`), its integer and bool template arguments in
+    order (`template`; K1's are its lanes and chunk length), registers,
+    stack bytes, spill store and load bytes. Sorted by name and template."""
+    log = build_log(name) if log is None else log
     report, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"lpc_cepstra_kernelILi(\d+)ELi(\d+)E", m.group(1))
-            cur = {"lanes": int(t.group(1)), "chunk": int(t.group(2))} if t else None
-            if cur:
-                report.append(cur)
+            cur = _entry_name(m.group(1))
+            report.append(cur)
             continue
         if cur is None:
             continue
@@ -164,10 +165,28 @@ def register_report(log: str | None = None) -> list[dict]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
-    return sorted(report, key=lambda d: (d["lanes"], d["chunk"]))
+    return sorted(report, key=lambda d: (d["kernel"], d["template"]))
 
 
-def build(name: str = "lpc_cepstra") -> str:
+def _entry_name(mangled: str) -> dict:
+    """The last name of an Itanium-mangled `_Z[N][L]<len><name>...`
+    function and its template arguments `I ... E`: ints (`Li<n>E`) and
+    bools (`Lb<0|1>E`). A name that is not mangled is its own."""
+    m = re.match(r"_ZN?L?", mangled)
+    if not m:
+        return {"kernel": mangled, "template": ()}
+    pos, name = m.end(), mangled
+    while (m := re.match(r"\d+", mangled[pos:])):
+        start = pos + m.end()
+        pos = start + int(m.group())
+        name = mangled[start:pos]
+    args = re.match(r"I((?:L[ib]\d+E)*)E", mangled[pos:])
+    template = tuple(int(v) if kind == "i" else bool(int(v))
+                     for kind, v in re.findall(r"L([ib])(\d+)E", args.group(1) if args else ""))
+    return {"kernel": name, "template": template}
+
+
+def build(name: str) -> str:
     """Compile a kernel's library unless it is built; return its path.
     Raises with the compiler's output on failure. Ranks are processes: a
     file lock in _build/ lets one of them compile while the others wait
@@ -218,7 +237,7 @@ def _compile(out: str, source: str, units) -> str:
     return out
 
 
-def load(name: str = "lpc_cepstra") -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """A kernel's shared library, built first if needed."""
     with _load_lock:
         if name not in _libs:

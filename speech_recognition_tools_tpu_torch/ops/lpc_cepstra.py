@@ -126,7 +126,7 @@ def lpc_cepstra(r: torch.Tensor, order: int, lim: int,
     out = torch.empty((P, lim), dtype=torch.float32, device=r.device)
     if P == 0:
         return out
-    lib = kernels.load()
+    lib = kernels.load("lpc_cepstra")
     stream = torch.cuda.current_stream(r.device).cuda_stream
     rc = lib.lpc_cepstra_f32(
         r.data_ptr(), out.data_ptr(), P, r.stride(0), order, lim,

@@ -3,9 +3,9 @@
 On the CPU: CPU input takes the plain version and launches nothing, and
 kernels.py keeps K2 in a library of its own whose source does not enter
 K1's library path. On the card (skipped without one): the kernel against
-ctc_prefix_scores_reference at the decode cell's shape and at B = 1, a
-card beam search against the CPU search, the launch count, and the
-inputs the kernel refuses. Run there with
+ctc_prefix_scores_reference at the decode cell's shape, at B = 32 and at
+B = 1, a card beam search against the CPU search, the launch count, and
+the inputs the kernel refuses. Run there with
 `python -m pytest --noconftest tests/test_torch_ctc_prefix_kernel.py`
 (tests/conftest.py imports JAX; these tests need torch alone).
 """
@@ -17,6 +17,7 @@ import shutil
 
 import pytest
 import torch
+from torch_card import card  # noqa: F401  (the fixture)
 
 from speech_recognition_tools_tpu_torch import kernels
 from speech_recognition_tools_tpu_torch.decode import ctc_prefix as ctc
@@ -34,22 +35,15 @@ V = 52
 PREFIXES = [[], [5], [5, 5], [7, 3], [0], [3, 0], [12, 12, 12], [9, 4, 9, 4], [V - 1]]
 
 
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: this test runs on the chip")
-    return torch.device("cuda")
-
-
 def _logp(B, T, seed, device):
     g = torch.Generator().manual_seed(seed)
     return torch.log_softmax(torch.randn(B, T, V, generator=g) * 2, -1).to(device)
 
 
-def _inputs(B, T, enc_len, seed, device):
+def prefix_inputs(B, T, enc_len, seed, device):
     """logp, enc_len, prefix_lens, last_tokens and r_prev for PREFIXES and
     one impossible prefix, the forward variables chained through the plain
-    version from the empty prefix's."""
+    version from the empty prefix's (chip_smoke.py times K2 on them)."""
     logp = _logp(B, T, seed, device)
     enc_len = torch.as_tensor(enc_len, dtype=torch.long, device=device)
     rows = []
@@ -81,7 +75,7 @@ def _assert_matches(got, want):
 
 
 def _check_kernel(B, T, enc_len, seed, device, expand_first=False):
-    args = _inputs(B, T, enc_len, seed, device)
+    args = prefix_inputs(B, T, enc_len, seed, device)
     before = ctc.ctc_prefix_scores.launches
     got = ctc.ctc_prefix_scores(*args)
     torch.cuda.synchronize()
@@ -105,7 +99,7 @@ def _check_kernel(B, T, enc_len, seed, device, expand_first=False):
 
 
 def test_cpu_input_runs_the_plain_version_and_launches_nothing():
-    args = _inputs(2, 9, [9, 5], 1, torch.device("cpu"))
+    args = prefix_inputs(2, 9, [9, 5], 1, torch.device("cpu"))
     before = ctc.ctc_prefix_scores.launches
     got = ctc.ctc_prefix_scores(*args)
     want = ctc.ctc_prefix_scores_reference(*args)
@@ -121,8 +115,10 @@ def test_input_on_another_device_raises():
 
 
 def test_kernels_names_two_libraries():
-    k1, k2 = kernels.library_path(), kernels.library_path("ctc_prefix")
-    assert kernels.library_path("lpc_cepstra") == k1 != k2
+    k1, k2 = kernels.library_path("lpc_cepstra"), kernels.library_path("ctc_prefix")
+    assert k1 != k2
+    with pytest.raises(TypeError):  # every caller names its kernel
+        kernels.library_path()
     assert os.path.dirname(k1) == os.path.dirname(k2) == kernels.BUILD_DIR
     assert os.path.basename(k1).startswith("liblpc_cepstra-")
     assert os.path.basename(k2).startswith("libctc_prefix-")
@@ -139,7 +135,7 @@ def test_k1_library_path_is_k1s_source_units_and_flags_alone(tmp_path, monkeypat
     h.update(" ".join([*kernels.COMPILE_FLAGS, *kernels.LINK_FLAGS]).encode())
     h.update(repr(kernels._units()).encode())
     k1 = os.path.join(kernels.BUILD_DIR, f"liblpc_cepstra-{h.hexdigest()[:12]}.so")
-    assert kernels.library_path() == k1
+    assert kernels.library_path("lpc_cepstra") == k1
     k2 = kernels.library_path("ctc_prefix")
 
     edited = tmp_path / "ctc_prefix.cu"
@@ -149,16 +145,18 @@ def test_k1_library_path_is_k1s_source_units_and_flags_alone(tmp_path, monkeypat
     monkeypatch.setitem(kernels.KERNELS, "ctc_prefix",
                         dataclasses.replace(kernels.KERNELS["ctc_prefix"], source=str(edited)))
     assert kernels.library_path("ctc_prefix") != k2
-    assert kernels.library_path() == k1
+    assert kernels.library_path("lpc_cepstra") == k1
 
 
 # ------------------------------------------------------------------ card
 
 
-def test_kernel_matches_the_plain_version_at_the_decode_cells_shape(card):
-    """B 8, K 10, V 52, T 303, enc_len spread over 100-303."""
-    enc = torch.linspace(100, 303, 8).round().long().tolist()
-    _check_kernel(8, 303, enc, 2, card, expand_first=True)
+@pytest.mark.parametrize("B,T,lo", [(8, 303, 100), (32, 249, 149)], ids=["B8", "B32"])
+def test_kernel_matches_the_plain_version_at_the_decode_cells_shape(card, B, T, lo):
+    """B 8, K 10, V 52, T 303, enc_len spread over 100-303; and B 32 at T
+    249, enc_len 149-249 (32 utterances of 6-10 s, a recog_e2e batch)."""
+    enc = torch.linspace(lo, T, B).round().long().tolist()
+    _check_kernel(B, T, enc, 2, card, expand_first=True)
 
 
 def test_kernel_matches_the_plain_version_at_one_utterance(card):
@@ -198,7 +196,7 @@ def test_card_search_matches_the_cpu_search(card):
 
 def test_kernel_takes_int32_lengths(card):
     """encode_ring's int32 enc_len: widened, one launch, the int64 result."""
-    args = _inputs(2, 16, [16, 9], 6, card)
+    args = prefix_inputs(2, 16, [16, 9], 6, card)
     want = ctc.ctc_prefix_scores(*args)
     before = ctc.ctc_prefix_scores.launches
     got = ctc.ctc_prefix_scores(args[0], args[1].int(), *args[2:])
@@ -208,7 +206,7 @@ def test_kernel_takes_int32_lengths(card):
 
 
 def test_kernel_refuses_what_it_does_not_take(card):
-    logp, enc, lens, last, r_prev = _inputs(2, 16, [16, 9], 5, card)
+    logp, enc, lens, last, r_prev = prefix_inputs(2, 16, [16, 9], 5, card)
     before = ctc.ctc_prefix_scores.launches
     with pytest.raises(TypeError, match="float32"):
         ctc.ctc_prefix_scores(logp.double(), enc, lens, last, r_prev.double())

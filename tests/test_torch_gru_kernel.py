@@ -23,17 +23,11 @@ import shutil
 
 import pytest
 import torch
+from torch_card import card  # noqa: F401  (the fixture)
 
 from speech_recognition_tools_tpu_torch import kernels
 from speech_recognition_tools_tpu_torch.ops import gru_scan as k3
 from speech_recognition_tools_tpu_torch.ops.gru_scan import gru_scan, gru_scan_reference
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: this test runs on the chip")
-    return torch.device("cuda")
 
 
 def _inputs(B, T, H, lengths, seed, device, dtype=torch.float32):
@@ -349,6 +343,43 @@ def test_card_train_step_launches_k3_six_times(card):
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
     assert gru_scan.launches == before + 6
+
+
+GRU_ARCHS = ["rnn", "multitask_ae", "multitask_aear", "vae", "vae_classifier", "arvae",
+             "pm_ae", "apc", "curl", "curl_unsup", "multimod"]
+
+
+@pytest.mark.parametrize("arch", GRU_ARCHS + ["rnnlm"])
+def test_card_every_gru_model_trains_through_k3(card, arch):
+    """Every model of the port with a GRU stack (train_am's archs at small
+    widths, one Trainer step through its make_loss; the RNNLM's lm_loss
+    forward and backward) runs each GRU layer on K3: at least one launch
+    a layer, and one backward."""
+    from speech_recognition_tools_tpu_torch.cli import train_am
+    from speech_recognition_tools_tpu_torch.models.recurrent import MaskedGRULayer
+    from speech_recognition_tools_tpu_torch.models.rnnlm import RNNLM, lm_loss
+    from speech_recognition_tools_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    torch.manual_seed(9)
+    lengths = torch.tensor([9, 6, 2], device=card)
+    before = gru_scan.launches
+    if arch == "rnnlm":
+        model = RNNLM(12, 8, 16, 2, device=card)
+        loss = lm_loss(model, torch.randint(0, 12, (3, 9), device=card), lengths)
+        loss.backward()
+    else:
+        args = train_am.get_parser().parse_args(
+            ["egs", "out", "--arch", arch, "--num_layers", "2", "--num_layers_dec", "1",
+             "--hidden_dim", "16", "--bn_dim", "8", "--comp_num", "2"])
+        model = train_am.build_model(args, 20, 12, card)
+        trainer = Trainer(model, train_am.make_loss(args), TrainConfig())
+        batch = {"feats": torch.randn(3, 9, 20, device=card), "lengths": lengths,
+                 "labels": torch.randint(0, 12, (3, 9), device=card)}
+        loss, _, _ = trainer.train_step(trainer.init_state(), batch)
+    torch.cuda.synchronize()
+    layers = sum(isinstance(m, MaskedGRULayer) for m in model.modules())
+    assert layers > 0 and torch.isfinite(loss)
+    assert gru_scan.launches - before >= layers + 1, (arch, layers, gru_scan.launches - before)
 
 
 def test_card_vmapped_experts_match_each_expert(card):

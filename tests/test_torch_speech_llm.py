@@ -11,7 +11,7 @@ On the card (skipped without one): a decode step of the full-size model
 makes no host sync before `search.wait`; the step as a CUDA graph against
 the step op by op; the expert layer's grouped products at the published
 widths in bfloat16 against a loop over experts. Run there with
-`python -m pytest --noconftest tests/test_torch_speech_llm.py -k card`
+`python -m pytest --noconftest tests/test_torch_speech_llm.py`
 (tests/conftest.py imports JAX; these tests need torch alone).
 """
 
@@ -20,6 +20,7 @@ import os
 
 import pytest
 import torch
+from torch_card import card  # noqa: F401  (the fixture)
 
 from benchmark.reference import moe_lm as ref
 from speech_recognition_tools_tpu_torch.decode import beam_jit
@@ -266,13 +267,6 @@ def test_the_configuration_file_is_moonlight():
     lm = MoELM(cfg, device="meta")
     n = sum(p.numel() for p in lm.parameters())
     assert abs(n - 15.96e9) < 0.01e9
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: this test needs one")
-    return torch.device("cuda")
 
 
 def test_card_grouped_experts_at_the_published_widths(card):
