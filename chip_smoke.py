@@ -157,10 +157,11 @@ tests, not a phase here. Phases:
      plain version on the path's own lags with unity gain off and on
      (MODSPEC_K1_TOL, MODSPEC_K1_REL), its kernel ms, plain ms and bound; the
      batch's and the CLI's real-time factors and a profile. (c) phase 5's
-     search on its 32 encoded utterances with the KV-cached decoder against
-     the full-prefix one: hypotheses token-identical (a difference only at
-     a near-tie), best scores within INCR_SCORE_REL, max_len INCR_MAX_LEN;
-     ms a step both ways;
+     search on its 32 encoded utterances, the fixed-buffer KV-cached step
+     replayed as a CUDA graph against the eager full-prefix loop:
+     hypotheses token-identical (a difference only at a near-tie), best
+     scores within INCR_SCORE_REL, max_len INCR_MAX_LEN; ms a step both
+     ways;
   12. (a) bf16 mixed precision on phase 5's weights and phase 3's batch:
      recognize_batch with compute_dtype bfloat16 (FDLP on K1, counted;
      BF16_MAX_LEN) against the float32 chain in the same call (encoder ms,
@@ -314,10 +315,13 @@ tests, not a phase here. Phases:
      K3's over phase 6's train_am.main; `launches_by_path` each path's:
      K2's over the e2e, incremental, bf16, conformer and word-LM searches
      and recog_e2e's --jit_decode and --streaming final beam, every one at
-     least 1; K3's over the hybrid training, the RNNLM stage, the hybrid
-     posteriors, the MFCC training, the PM stage, the zoo, adaptation,
-     lifelong decoding, alignment and each rank of train_am --data_parallel
-     and --expert_parallel; the other numbers phase 2's kernel_table's);
+     least 1, and beside them the CUDA graphs each of those searches
+     captured (`search_graph_captures_by_path`: one a new search shape, none
+     on the word-LM's eager loop); K3's over the hybrid training, the RNNLM
+     stage, the hybrid posteriors, the MFCC training, the PM stage, the zoo,
+     adaptation, lifelong decoding, alignment and each rank of train_am
+     --data_parallel and --expert_parallel; the other numbers phase 2's
+     kernel_table's);
   20. the run's time, the card's name and power limit again, then the last
      line: {"ok": true, "device": {...}}.
 """
@@ -345,6 +349,7 @@ from benchmark.common import (
     random_transcript,
     speechlike_signals,
 )
+from speech_recognition_tools_tpu_torch.decode.beam_jit import beam_search_encoded
 from speech_recognition_tools_tpu_torch.decode.ctc_prefix import ctc_prefix_scores
 from speech_recognition_tools_tpu_torch.ops.gru_scan import gru_scan
 
@@ -798,20 +803,20 @@ def bound_ms(flops, nbytes):
 
 class Launches:
     """One kernel's launches by path, for phase 19's kernels line: `reset()`
-    sets the kernel function's `.launches` counter to 0 before a path runs,
-    `read(path)` right after it keeps the count under `by_path[path]`. A
-    path launches the kernel at least `least` times; where `want` says how
-    many, exactly that many."""
+    sets the kernel function's `.launches` counter (or the counter `attr`)
+    to 0 before a path runs, `read(path)` right after it keeps the count
+    under `by_path[path]`. A path launches the kernel at least `least`
+    times; where `want` says how many, exactly that many."""
 
-    def __init__(self, fn, least):
-        self.fn, self.least, self.by_path = fn, least, {}
+    def __init__(self, fn, least, attr="launches"):
+        self.fn, self.least, self.attr, self.by_path = fn, least, attr, {}
 
     def reset(self):
-        self.fn.launches = 0
+        setattr(self.fn, self.attr, 0)
 
     def read(self, path, want=None):
-        n = self.fn.launches
-        assert n >= self.least, f"the {path} path launched {self.fn.__name__} {n} times"
+        n = getattr(self.fn, self.attr)
+        assert n >= self.least, f"the {path} path counted {self.fn.__name__}.{self.attr} {n}"
         assert want is None or n == want, (path, n, want)
         self.by_path[path] = n
         return n
@@ -821,6 +826,8 @@ class Launches:
 # tests/test_torch_gru_kernel.py::test_card_every_gru_model_trains_through_k3's
 K2 = Launches(ctc_prefix_scores, least=1)
 K3 = Launches(gru_scan, least=0)
+# the CUDA graphs each search path captures (decode/beam_jit.py)
+GRAPHS = Launches(beam_search_encoded, least=0, attr="graph_captures")
 
 
 def search_steps(toks):
@@ -1192,10 +1199,7 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
     11)."""
     import string
 
-    from speech_recognition_tools_tpu_torch.decode.beam_jit import (
-        beam_search_encoded,
-        tokens_to_list,
-    )
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import tokens_to_list
     from speech_recognition_tools_tpu_torch.dsp.fdlp import (
         FdlpConfig,
         fdlp_spectrogram_batch,
@@ -1250,20 +1254,24 @@ def e2e_phase(x, lens, fdlp_cfg, rng, dev):
     # the main path, counted, through the entry point a user calls
     lpc_cepstra.launches = 0
     K2.reset()
+    GRAPHS.reset()
     texts = recognize_batch(x, lens, fdlp_cfg, mean, std, asr, vocab, lm=lm, **E2E_BEAM,
                             max_len=E2E_MAX_LEN, device=dev)
     torch.cuda.synchronize()
     launches = lpc_cepstra.launches
     assert launches > 0, "the e2e path did not launch K1"
     k2_e2e = K2.read("e2e")
+    GRAPHS.read("e2e")
 
     # the same chain part by part, held to the one call
     feats, nfr = front(fdlp_cfg)
     mem, enc_len, ctc = encode(feats, nfr)
     K2.reset()
+    GRAPHS.reset()
     toks, scores = search(mem, enc_len, ctc)
     steps = search_steps(toks)
     K2.read("e2e_search", steps)
+    GRAPHS.read("e2e_search")
     hyps = [tokens_to_list(toks[b], scores[b], eos) for b in range(B)]
     assert texts == [decode_tokens(h, vocab) for h in hyps], "recognize_batch != its parts"
     assert all(isinstance(t, str) for t in texts) and len(texts) == B
@@ -1704,7 +1712,6 @@ def serve_phase(x, lens, fdlp_cfg, feats, nfr, rng, dev, tmp):
     from scipy.io.wavfile import write as wav_write
 
     from speech_recognition_tools_tpu_torch.cli import recog_e2e, serve, transcribe
-    from speech_recognition_tools_tpu_torch.decode.beam_jit import beam_search_encoded
     from speech_recognition_tools_tpu_torch.dsp.fdlp import window_lags
     from speech_recognition_tools_tpu_torch.dsp.streaming import StreamingFdlp
     from speech_recognition_tools_tpu_torch.infer.streaming_asr import (
@@ -1886,15 +1893,19 @@ def serve_phase(x, lens, fdlp_cfg, feats, nfr, rng, dev, tmp):
                for b in range(SERVE_RECOG_UTTS)), egs, cmvn=(mean, std))
     common = ["--lm_dir", lm_dir, "--max_len", str(SERVE_RECOG_MAX_LEN), "--device", str(dev)]
     K2.reset()
+    GRAPHS.reset()
     t_jit, hyp_jit = _synced(lambda: recog_e2e.main(
         [model_dir, egs, os.path.join(tmp, "hyp_jit"), "--jit_decode", "--batch_size",
          str(SERVE_RECOG_UTTS), *common]))
     K2.read("recog_e2e_jit")
+    GRAPHS.read("recog_e2e_jit")
     K2.reset()
+    GRAPHS.reset()
     t_str, hyp_str = _synced(lambda: recog_e2e.main(
         [model_dir, egs, os.path.join(tmp, "hyp_stream"), "--streaming", "--streaming_final",
          "beam", *common]))
     K2.read("stream_final_beam")  # one B = 1 search an utterance
+    GRAPHS.read("stream_final_beam")
     assert sorted(hyp_jit) == sorted(hyp_str) and len(hyp_jit) == SERVE_RECOG_UTTS
     lm = recog_e2e._load_lm(lm_dir, device=dev)
     recog_gaps = []
@@ -1984,10 +1995,7 @@ def lm_train_phase(e2e, rng, dev, tmp):
 
     from speech_recognition_tools_tpu_torch.cli import train_lm
     from speech_recognition_tools_tpu_torch.cli.recog_e2e import _load_lm
-    from speech_recognition_tools_tpu_torch.decode.beam_jit import (
-        beam_search_encoded,
-        tokens_to_list,
-    )
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import tokens_to_list
     from speech_recognition_tools_tpu_torch.io.text import save_vocab
     from speech_recognition_tools_tpu_torch.models.rnnlm import RNNLM
     from speech_recognition_tools_tpu_torch.train.optim import ClipAdam
@@ -2226,10 +2234,7 @@ def ctc_only_check(e2e):
     """Phase 5's model at ctc_weight 1.0 (the joint search on CTC prefix
     scores alone, with the RNNLM): every score finite and no best
     hypothesis holds a blank."""
-    from speech_recognition_tools_tpu_torch.decode.beam_jit import (
-        beam_search_encoded,
-        tokens_to_list,
-    )
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import tokens_to_list
 
     asr = e2e["asr"]
     beam = dict(E2E_BEAM, ctc_weight=1.0)
@@ -2394,10 +2399,7 @@ def conformer_phase(x, lens, fdlp_cfg, feats, nfr, rng, dev, tmp):
     import string
 
     from speech_recognition_tools_tpu_torch.cli import recog_e2e, train_e2e
-    from speech_recognition_tools_tpu_torch.decode.beam_jit import (
-        beam_search_encoded,
-        tokens_to_list,
-    )
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import tokens_to_list
     from speech_recognition_tools_tpu_torch.dsp.fdlp import FdlpConfig, fdlp_spectrogram_batch
     from speech_recognition_tools_tpu_torch.dsp.streaming import StreamingFdlp
     from speech_recognition_tools_tpu_torch.infer.recognize import recognize_batch
@@ -2465,12 +2467,14 @@ def conformer_phase(x, lens, fdlp_cfg, feats, nfr, rng, dev, tmp):
     # the main path, counted, through the entry point a user calls
     lpc_cepstra.launches = 0
     K2.reset()
+    GRAPHS.reset()
     t_first, texts = _synced(lambda: recognize_batch(
         x, lens, fdlp_cfg, mean, std, asr, vocab, lm=lm, **E2E_BEAM, max_len=CONF_MAX_LEN,
         device=dev))
     launches = lpc_cepstra.launches
     assert launches > 0, "the conformer path did not launch K1"
     K2.read("conformer_e2e")
+    GRAPHS.read("conformer_e2e")
     t_front, (f, n) = wall_s(lambda: front(fdlp_cfg))
     t_enc, (mem, enc_len, ctc) = wall_s(lambda: encode(f, n))
     # recognize_batch has just run this search: no warm-up call
@@ -2833,29 +2837,30 @@ def modspec_phase(x, lens, dev, tmp):
 
 def incremental_phase(e2e, dev):
     """Phase 11 (c): phase 5's search (beam 10, ctc_weight 0.3, the RNNLM,
-    max_len INCR_MAX_LEN) on phase 5's 32 encoded utterances, KV-cached against
-    full-prefix: the same hypotheses (a difference only at a near-tie: the
-    best scores within INCR_SCORE_REL) and best scores within
-    INCR_SCORE_REL, relative; ms a step both ways."""
-    from speech_recognition_tools_tpu_torch.decode.beam_jit import (
-        beam_search_encoded,
-        tokens_to_list,
-    )
+    max_len INCR_MAX_LEN) on phase 5's 32 encoded utterances, the fixed-buffer
+    KV-cached step replayed as a CUDA graph (beam_search_encoded) against the
+    eager loop's full-prefix pass (beam_search_eager): the same hypotheses
+    (a difference only at a near-tie: the best scores within
+    INCR_SCORE_REL) and best scores within INCR_SCORE_REL, relative; ms a
+    step both ways."""
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import beam_search_eager, tokens_to_list
 
     t_phase = time.perf_counter()
     asr, lm = e2e["asr"], e2e["lm"]
     mem, enc_len, ctc = e2e["mem_all"], e2e["enc_len_all"], e2e["ctc_all"]
     eos = asr.cfg.eos_id
 
-    def search(incremental, n=len(enc_len), max_len=INCR_MAX_LEN):
-        return beam_search_encoded(asr, mem[:n], enc_len[:n], ctc[:n], lm=lm, max_len=max_len,
-                                   incremental=incremental, **E2E_BEAM)
+    def search(fn, n=len(enc_len), max_len=INCR_MAX_LEN):
+        return fn(asr, mem[:n], enc_len[:n], ctc[:n], lm=lm, max_len=max_len, **E2E_BEAM)
 
-    search(True, n=2, max_len=5)  # first launches of the step's shapes
-    t_full, (tf, sf) = _synced(lambda: search(False))
+    search(beam_search_encoded, max_len=2)  # captures the graph the timed search replays
+    search(beam_search_eager, n=2, max_len=5)  # first launches of the step's shapes
+    t_full, (tf, sf) = _synced(lambda: search(beam_search_eager))
     K2.reset()
-    t_inc, (ti, si) = _synced(lambda: search(True))
+    GRAPHS.reset()
+    t_inc, (ti, si) = _synced(lambda: search(beam_search_encoded))
     K2.read("incremental", search_steps(ti))
+    GRAPHS.read("incremental", 0)
     steps = search_steps(tf)
     assert torch.isfinite(si).all() and ti.shape == tf.shape
     B = len(enc_len)
@@ -2867,8 +2872,8 @@ def incremental_phase(e2e, dev):
     assert rel <= INCR_SCORE_REL, (rel, best_f, best_i)
     log(f"[incremental] phase 5's model, {B} utterances, beam {E2E_BEAM['beam_size']}, RNNLM, "
         f"max_len {INCR_MAX_LEN} ({steps} steps run): token-identical {same} of {B}; best "
-        f"score rel err {rel:.3e} (limit {INCR_SCORE_REL}); full-prefix {t_full * 1e3:.1f} ms = "
-        f"{t_full / steps * 1e3:.2f} ms/step, KV-cached {t_inc * 1e3:.1f} ms = "
+        f"score rel err {rel:.3e} (limit {INCR_SCORE_REL}); full-prefix eager {t_full * 1e3:.1f} "
+        f"ms = {t_full / steps * 1e3:.2f} ms/step, KV-cached graph {t_inc * 1e3:.1f} ms = "
         f"{t_inc / steps * 1e3:.2f} ms/step; phase 11 (c) took "
         f"{time.perf_counter() - t_phase:.1f} s")
 
@@ -2904,10 +2909,7 @@ def bf16_phase(e2e, x, lens, fdlp_cfg, fa, na, rng, dev, tmp):
     import os
 
     from speech_recognition_tools_tpu_torch.cli import train_e2e
-    from speech_recognition_tools_tpu_torch.decode.beam_jit import (
-        beam_search_encoded,
-        tokens_to_list,
-    )
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import tokens_to_list
     from speech_recognition_tools_tpu_torch.infer.recognize import recognize_batch
     from speech_recognition_tools_tpu_torch.infer.streaming_asr import StreamBatcher
     from speech_recognition_tools_tpu_torch.io.jax_params import transformer_asr_from_jax
@@ -2944,12 +2946,14 @@ def bf16_phase(e2e, x, lens, fdlp_cfg, fa, na, rng, dev, tmp):
     # the main path in bf16, counted, through the entry point a user calls
     lpc_cepstra.launches = 0
     K2.reset()
+    GRAPHS.reset()
     texts16 = recognize_batch(x, lens, fdlp_cfg, mean, std, asr16, vocab, lm=lm, **E2E_BEAM,
                               max_len=BF16_MAX_LEN, device=dev)
     torch.cuda.synchronize()
     launches = lpc_cepstra.launches
     assert launches > 0, "the bf16 e2e path did not launch K1"
     K2.read("bf16_e2e")
+    GRAPHS.read("bf16_e2e")
 
     def encode(m, f=feats, n=nfr):
         with torch.no_grad():
@@ -3123,10 +3127,7 @@ def lstm_lm_phase(e2e, idim, dev, tmp):
 
     from speech_recognition_tools_tpu_torch.cli import train_lm
     from speech_recognition_tools_tpu_torch.cli.recog_e2e import _load_lm
-    from speech_recognition_tools_tpu_torch.decode.beam_jit import (
-        beam_search_encoded,
-        tokens_to_list,
-    )
+    from speech_recognition_tools_tpu_torch.decode.beam_jit import tokens_to_list
     from speech_recognition_tools_tpu_torch.io.text import load_vocab, read_text_file
     from speech_recognition_tools_tpu_torch.models.rnnlm import RNNLM
     from speech_recognition_tools_tpu_torch.models.transformer_asr import TransformerASR
@@ -4490,7 +4491,6 @@ def wordlm_phase(x, lens, fdlp_cfg, rng, dev, tmp):
     at decode time); hypotheses card vs CPU on WORDLM_CPU_UTTS; ms a search
     step by part. Returns K1's launches over the decode set's featgen."""
     from speech_recognition_tools_tpu_torch.cli import recog_e2e, train_lm
-    from speech_recognition_tools_tpu_torch.decode.beam_jit import beam_search_encoded
     from speech_recognition_tools_tpu_torch.decode.wordlm import (
         LookaheadWordLM,
         word_vocab_from_dict,
@@ -4573,9 +4573,11 @@ def wordlm_phase(x, lens, fdlp_cfg, rng, dev, tmp):
     common = ["--word_lm_dir", store, "--word_lm_dict", j("wlm_dict.txt"), "--beam_size",
               str(E2E_BEAM["beam_size"]), "--max_len", str(WORDLM_MAX_LEN)]
     K2.reset()
+    GRAPHS.reset()
     t_off, hyps = _synced(lambda: recog_e2e.main(
         [j("cl_m5"), j("wlm_egs"), j("wlm_hyp.txt"), *common, "--device", str(dev)]))
     K2.read("wordlm_decode")
+    GRAPHS.read("wordlm_decode")
     t_str, hyps_s = _synced(lambda: recog_e2e.main(
         [j("cl_m5"), j("wlm_egs"), j("wlm_hyp_stream.txt"), *common, "--streaming",
          "--attn_chunk", str(SERVE_CHUNK["attn_chunk"]), "--attn_left_chunks",
@@ -6303,6 +6305,7 @@ def main():
         "replaces": "speech_recognition_tools_tpu/decode/ctc_prefix.py (lax.scan)",
         "launches": K2.by_path["e2e"],
         "launches_by_path": K2.by_path,
+        "search_graph_captures_by_path": GRAPHS.by_path,
         **table["ctc_prefix"],
     }, {
         "name": "gru_scan",

@@ -169,6 +169,15 @@ def ctc_prefix_scores(logp, enc_len, prefix_lens, last_tokens, r_prev, blank_id=
 ctc_prefix_scores.launches = 0
 
 
+def count_launches(n: int) -> None:
+    """Add `n` to ctc_prefix_scores.launches: a CUDA graph's replay launches
+    the kernel its capture recorded (and counted) without calling the
+    wrapper, so the caller counts each replay here and takes back the
+    capture's count, which launched nothing."""
+    with _count_lock:
+        ctc_prefix_scores.launches += n
+
+
 def init_prefix_state(logp, enc_len, beam_size, blank_id=0):
     """Forward variables (B, K, T, 2) of the empty prefix, replicated over
     the K beams (an expanded view)."""

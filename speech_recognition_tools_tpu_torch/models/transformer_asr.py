@@ -54,6 +54,15 @@ the position's encoding is the row `pos` of the sinusoidal table.
 Cross-attention is computed from the memory at every step, as in the JAX
 package.
 
+The fixed-buffer step (`decode_fixed_buffers`, `decode_fixed_load`,
+`decode_fixed_step`, `decode_fixed_reorder`) is the beam search's: a
+self-attention cache of `cap` slots written at a slot held in a device
+tensor, the slots past it masked, and the cross-attention keys and values
+projected once a search from the B utterances' memory, against which the K
+beams of an utterance attend as K query positions (exact: beams do not
+attend to one another). Nothing in it depends on the step on the host, so
+decode/beam_jit.py captures it in a CUDA graph.
+
 Mixed precision (compute_dtype "bfloat16") is flax's `dtype=` idiom,
 written out module by module rather than with torch.autocast: the
 parameters stay float32 master weights (so checkpoints and the Adam state
@@ -264,28 +273,35 @@ class MultiHeadAttention(nn.Module):
         self.value = Dense(dim, dim, cdtype, device=device)
         self.out = Dense(dim, dim, cdtype, device=device)
 
+    def _split(self, x):  # (B, T, D) -> (B, H, T, hd)
+        # heads: all of them, or this rank's under tensor parallelism
+        return x.view(x.shape[0], x.shape[1], self.heads, self.head_dim).transpose(1, 2)
+
+    def kv(self, kv_in):
+        """The keys and values of kv_in (B, T, D), each (B, H, T, hd)."""
+        return self._split(self.key(kv_in)), self._split(self.value(kv_in))
+
+    def attend(self, q_in, k, v, mask):
+        """The queries of q_in (B, Tq, D) against keys and values already
+        projected (B, H, Tk, hd) under `mask` -> (B, Tq, D)."""
+        B, Tq = q_in.shape[:2]
+        q = self.query(q_in)
+        q = self._split(q) / scalar_as(math.sqrt(self.head_dim), q.dtype)
+        w = torch.where(mask, q @ k.transpose(-1, -2), torch.finfo(q.dtype).min)
+        o = torch.softmax(w, dim=-1) @ v
+        return self.out(o.transpose(1, 2).reshape(B, Tq, self.heads * self.head_dim))
+
     def forward(self, q_in, kv_in, mask, kv_cache=None, index=None):
         """kv_cache: a layer's {"k", "v"} (B, H, L, hd) cache (decode mode):
         this call's keys and values are written at [index, index + Tq) and
         the query attends to the whole cache under `mask`."""
-        B, Tq = q_in.shape[:2]
-        # heads: all of them, or this rank's under tensor parallelism
-        H, hd = self.heads, self.head_dim
-
-        def split(x):  # (B, T, D) -> (B, H, T, hd)
-            return x.view(B, x.shape[1], H, hd).transpose(1, 2)
-
-        q = self.query(q_in)
-        q = split(q) / scalar_as(math.sqrt(hd), q.dtype)
-        k = split(self.key(kv_in))
-        v = split(self.value(kv_in))
+        k, v = self.kv(kv_in)
         if kv_cache is not None:
+            Tq = q_in.shape[1]
             kv_cache["k"][:, :, index : index + Tq] = k
             kv_cache["v"][:, :, index : index + Tq] = v
             k, v = kv_cache["k"], kv_cache["v"]
-        w = (q @ k.transpose(-1, -2)).masked_fill(~mask, torch.finfo(q.dtype).min)
-        o = torch.softmax(w, dim=-1) @ v
-        return self.out(o.transpose(1, 2).reshape(B, Tq, H * hd))
+        return self.attend(q_in, k, v, mask)
 
 
 class MHABlock(nn.Module):
@@ -316,6 +332,33 @@ class MHABlock(nn.Module):
             x = x + self.drop(self.src_attn(self.norm_src(x), memory, memory_mask))
         h = self.drop(F.relu(self.ff_in(self.norm_ff(x))))
         return x + self.drop(self.ff_out(h))
+
+    def fixed_step(self, x, self_mask, kv, slot, cross, memory_mask):
+        """A decoder block's step over fixed buffers, without dropout: x
+        (N, 1, D) for N = B x K rows, its key and value written into kv
+        (2, N, H, cap, hd) at the device index `slot` (1,); the B x K rows
+        attend to cross (2, B, H, T2, hd), the keys and values of the B
+        utterances' memory, as K query positions of their utterance."""
+        h = _fixed_norm(self.norm_self, x)
+        k, v = self.self_attn.kv(h)
+        kv[0].index_copy_(2, slot, k)
+        kv[1].index_copy_(2, slot, v)
+        x = x + self.self_attn.attend(h, kv[0], kv[1], self_mask)
+        q = _fixed_norm(self.norm_src, x).view(cross.shape[1], -1, x.shape[-1])  # (B, K, D)
+        x = x + self.src_attn.attend(q, cross[0], cross[1], memory_mask).view(x.shape)
+        return x + self.ff_out(F.relu(self.ff_in(_fixed_norm(self.norm_ff, x))))
+
+
+def _fixed_norm(norm: LayerNorm, x):
+    """`norm` as one kernel for the fixed-buffer step: F.layer_norm takes
+    the variance in two passes where flax's LayerNorm takes E[x^2] -
+    E[x]^2 in a dozen elementwise kernels; the two agree to float32
+    rounding (F.layer_norm the nearer to float64), and the step's scores
+    to ~1e-7 relative. With a compute dtype, statistics and affine in
+    float32, as LayerNorm."""
+    y = F.layer_norm(x if norm.cdtype is None else x.float(), x.shape[-1:], norm.weight,
+                     norm.bias, norm.eps)
+    return y if norm.cdtype is None else y.to(norm.cdtype)
 
 
 def _ffn(norm, lin_in, lin_out, x, drop):
@@ -527,6 +570,58 @@ class TransformerDecoder(nn.Module):
         cache["index"] = index + 1
         return _head(self.output, self.after_norm(h))
 
+    def fixed_buffers(self, batch: int, beams: int, cap: int, frames: int, device):
+        """The fixed buffers of `fixed_step` for `batch` utterances of
+        `frames` memory frames, `beams` rows each, and `cap` positions:
+        "cache" (dlayers, 2, batch * beams, H, cap, hd) self-attention keys
+        and values, "cross" (dlayers, 2, batch, H, frames, hd) the memory's
+        cross-attention keys and values, both in the compute dtype;
+        "memory_mask" (batch, 1, 1, frames); "pe" the first `cap` rows of
+        the sinusoidal table and "slots" arange(cap), owned by the buffers
+        (a captured graph reads every tensor where it was at capture)."""
+        attn = self.layers[0].self_attn
+        H, hd, L = attn.heads, attn.head_dim, len(self.layers)
+        dtype = self.cfg.cdtype or torch.float32
+        return {
+            "cache": torch.zeros((L, 2, batch * beams, H, cap, hd), dtype=dtype, device=device),
+            "cross": torch.zeros((L, 2, batch, H, frames, hd), dtype=dtype, device=device),
+            "memory_mask": torch.zeros((batch, 1, 1, frames), dtype=torch.bool, device=device),
+            "pe": torch.as_tensor(posenc_host(cap, self.cfg.adim), device=device),
+            "slots": torch.arange(cap, device=device)}
+
+    def fixed_load(self, bufs, memory, memory_len):
+        """One search's inputs into `bufs`: the cache zeroed, and each layer's
+        cross-attention keys and values projected once from memory (B, T2,
+        D), one row per utterance."""
+        bufs["cache"].zero_()
+        for layer, cross in zip(self.layers, bufs["cross"]):
+            k, v = layer.src_attn.kv(memory)
+            cross[0].copy_(k)
+            cross[1].copy_(v)
+        frames = torch.arange(memory.shape[1], device=memory.device)
+        bufs["memory_mask"].copy_((frames[None, :] < memory_len[:, None])[:, None, None, :])
+
+    def fixed_step(self, last_tokens, slot, bufs):
+        """One KV-cached step over the fixed buffers: last_tokens (N,) at the
+        position held by the device tensor `slot` (1,) -> logits (N, V).
+        The step's keys and values go to cache slot `slot`; slots past it
+        are masked. No host sync and no shape that depends on the step, so
+        a CUDA graph can hold it."""
+        h = self._embed(last_tokens)[:, None]  # (N, 1, D)
+        pe = bufs["pe"].index_select(0, slot).to(h.dtype)
+        h = h * scalar_as(float(np.sqrt(self.cfg.adim)), h.dtype) + pe
+        self_mask = (bufs["slots"] <= slot)[None, None, None, :]
+        for layer, kv, cross in zip(self.layers, bufs["cache"], bufs["cross"]):
+            h = layer.fixed_step(h, self_mask, kv, slot, cross, bufs["memory_mask"])
+        return _head(self.output, _fixed_norm(self.after_norm, h))[:, 0]
+
+    @staticmethod
+    def fixed_reorder(bufs, rows):
+        """The cache's rows taken at `rows` (the surviving beams' parents),
+        in place."""
+        cache = bufs["cache"]
+        cache.copy_(cache.index_select(2, rows))
+
 
 class TransformerASR(nn.Module):
     """Joint CTC/attention model: `forward` returns (ctc_logits,
@@ -614,6 +709,32 @@ class TransformerASR(nn.Module):
         `rows` (the surviving beams' parents); the index is shared."""
         return {"index": cache["index"],
                 "layers": [{k: v[rows] for k, v in kv.items()} for kv in cache["layers"]]}
+
+    def decode_fixed_buffers(self, batch, beams, cap, frames, device):
+        """The fixed buffers of decode_fixed_step (TransformerDecoder.
+        fixed_buffers): a search of `batch` utterances, `beams` rows each,
+        over `frames` memory frames and `cap` >= max_len + 1 positions."""
+        return self.decoder.fixed_buffers(batch, beams, cap, frames, device)
+
+    def decode_fixed_load(self, bufs, memory, enc_len):
+        """One search's memory (B, T2, D) into `bufs`: the cross-attention
+        keys and values projected once an utterance, the cache zeroed."""
+        with torch.no_grad():
+            self.decoder.fixed_load(bufs, memory, enc_len)
+
+    def decode_fixed_step(self, last_tokens, slot, bufs):
+        """One KV-cached decoder step over fixed buffers, without dropout
+        and without gradients: last_tokens (N,) at the position in the
+        device tensor `slot` (1,) -> logits (N, V). Equal to decode_step's
+        at that position, and free of host syncs, so that the beam search
+        can capture it in a CUDA graph."""
+        with torch.no_grad():
+            return self.decoder.fixed_step(last_tokens, slot, bufs)
+
+    @staticmethod
+    def decode_fixed_reorder(bufs, rows):
+        """The fixed cache's rows taken at `rows`, in place."""
+        TransformerDecoder.fixed_reorder(bufs, rows)
 
 
 @contextmanager

@@ -135,17 +135,24 @@ def test_reorder_cache_takes_the_parents_rows(asr):
 @pytest.mark.parametrize("ctc_weight", [0.3, 1.0])
 @pytest.mark.parametrize("with_lm", [False, True])
 def test_incremental_search_matches_full_prefix_and_jax(asr, lm, with_lm, ctc_weight):
-    """B = 3 ragged utterances, beam 4, max_len 12: the incremental search
-    is token-identical to the port's full-prefix search (scores at atol
-    1e-4) and to beam_search_jit_batched(incremental=True) (all K scores at
-    atol 1e-4; float32 here, float64 there)."""
+    """B = 3 ragged utterances, beam 4, max_len 12: the eager loop's
+    incremental search is token-identical to its full-prefix search (scores
+    at atol 1e-4), to the search over the fixed-buffer step that
+    beam_search_batched runs (the same) and to
+    beam_search_jit_batched(incremental=True) (all K scores at atol 1e-4;
+    float32 here, float64 there)."""
     jmodel, params, port = asr
     jlm, lm_params, lm_port = lm
     x, lens = _feats()
     fused = lm_port if with_lm else None
-    kw = dict(BEAM, ctc_weight=ctc_weight, lm=fused, lm_weight=1.0, device="cpu")
-    it, isc = tbeam.beam_search_batched(port, x, lens, incremental=True, **kw)
-    ft, fsc = tbeam.beam_search_batched(port, x, lens, **kw)
+    kw = dict(BEAM, ctc_weight=ctc_weight, lm=fused, lm_weight=1.0)
+    with torch.no_grad():
+        enc = port.encode(torch.as_tensor(x), torch.as_tensor(lens).long())
+    it, isc = tbeam.beam_search_eager(port, *enc, incremental=True, **kw)
+    ft, fsc = tbeam.beam_search_eager(port, *enc, **kw)
+    xt, xsc = tbeam.beam_search_batched(port, x, lens, incremental=True, device="cpu", **kw)
+    assert torch.equal(xt, it)
+    np.testing.assert_allclose(xsc.numpy(), isc.numpy(), rtol=0, atol=1e-4)
     jt, js = jbeam.beam_search_jit_batched(
         jmodel, params, jnp.asarray(x), jnp.asarray(lens), ctc_weight=ctc_weight,
         lm_weight=1.0, incremental=True, **BEAM,
@@ -162,14 +169,20 @@ def test_incremental_search_matches_full_prefix_and_jax(asr, lm, with_lm, ctc_we
 
 def test_incremental_search_serves_the_conformer_encoder():
     """The decoder's cache does not depend on the encoder: on a conformer
-    model (random weights, port only) the incremental search equals the
-    full-prefix search token for token (scores at atol 1e-4)."""
+    model (random weights, port only) the incremental search (the eager
+    loop's, and the fixed-buffer step's that beam_search_batched runs)
+    equals the full-prefix search token for token (scores at atol 1e-4)."""
     cfg = ttasr.TransformerASRConfig(**MODEL, encoder_type="conformer", conv_kernel=5)
     port = ttasr.TransformerASR(cfg, D, device="cpu").eval()
     port.reset_parameters(torch.Generator().manual_seed(4))
     x, lens = _feats(seed=2)
-    it, isc = tbeam.beam_search_batched(port, x, lens, incremental=True, device="cpu", **BEAM)
-    ft, fsc = tbeam.beam_search_batched(port, x, lens, device="cpu", **BEAM)
+    with torch.no_grad():
+        enc = port.encode(torch.as_tensor(x), torch.as_tensor(lens).long())
+    it, isc = tbeam.beam_search_eager(port, *enc, incremental=True, **BEAM)
+    xt, xsc = tbeam.beam_search_batched(port, x, lens, incremental=True, device="cpu", **BEAM)
+    ft, fsc = tbeam.beam_search_eager(port, *enc, **BEAM)
+    assert torch.equal(xt, it)
+    np.testing.assert_allclose(xsc.numpy(), isc.numpy(), rtol=0, atol=1e-4)
     for b in range(3):
         assert tbeam.tokens_to_list(it[b], isc[b], EOS) == tbeam.tokens_to_list(
             ft[b], fsc[b], EOS)
